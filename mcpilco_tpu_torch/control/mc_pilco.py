@@ -1,0 +1,334 @@
+"""The MC-PILCO orchestrator: explore -> fit GPs -> optimize policy -> apply.
+
+A host-side trial loop with the responsibilities of
+``mcpilco_tpu/control/mc_pilco.py``: system interaction (``envs.plants``),
+model fitting (``MultiGP.fit``, SOD selection, posterior build) and policy
+optimization (``trainer.PolicyOptimizer``), all on ``device``.  The dataset
+accumulates on the host and is padded to shape buckets per fit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from .. import disable_tf32
+from ..envs.plants import TrialData
+from ..models import sod as sod_mod
+from ..models.costs import CostBase
+from ..models.dynamics import DynamicsModel
+from ..models.gp import GPData, GPParams, MultiGP
+from ..models.policies import PolicyBase
+from ..ops import linalg
+from ..utils import prng
+from .rollout import InitialStateDistribution
+from .trainer import OptResult, PolicyOptimizer
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelFitOptions:
+    """Per-trial GP training options."""
+
+    num_epochs: int = 1501
+    learning_rate: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class PolicyOptOptions:
+    """Per-trial knobs of the policy optimizer."""
+
+    opt_steps: int
+    learning_rate: float = 0.01
+    p_dropout: float = 0.0
+
+
+@dataclasses.dataclass
+class TrialLog:
+    cost_history: np.ndarray
+    std_history: np.ndarray
+    steps_done: int
+    particles_states: np.ndarray
+    particles_inputs: np.ndarray
+    reinit_count: int
+    wall_clock_s: float
+
+
+class MCPilco:
+    """Monte-Carlo PILCO on one device.
+
+    Checkpoints (``log_dir``) are not ported yet; passing one raises.
+    """
+
+    def __init__(
+        self,
+        *,
+        dt: float,
+        model: DynamicsModel,
+        gp: MultiGP,
+        policy: PolicyBase,
+        exploration_policy: PolicyBase,
+        cost: CostBase,
+        optimizer: PolicyOptimizer,
+        device,
+        plant=None,
+        init_dist: Optional[InitialStateDistribution] = None,
+        sod: Optional[sod_mod.SODConfig] = None,
+        gp_sigma_n_init: float = 1.0,
+        seed: int = 1,
+        log_dir: Optional[str] = None,
+        bucket: int = 64,
+    ):
+        if log_dir:
+            raise NotImplementedError("checkpoints (log_dir) are not ported yet")
+        disable_tf32()
+        self.device = torch.device(device)
+        self.dt = dt
+        self.model = model
+        self.gp = gp
+        self.policy = policy
+        self.exploration_policy = exploration_policy
+        self.cost = cost
+        self.optimizer = optimizer
+        self.plant = plant
+        self.init_dist = init_dist or optimizer.init_dist
+        self.sod = sod
+        self.gp_sigma_n_init = gp_sigma_n_init
+        self.seed = seed
+        self.bucket = bucket
+
+        self.key = prng.root_key(seed)
+        self.policy_params = policy.init_params(
+            prng.fold(prng.stream(self.key, prng.STREAM_POLICY_INIT), 0), device=self.device
+        )
+        self.expl_params = exploration_policy.init_params(
+            prng.fold(prng.stream(self.key, prng.STREAM_EXPLORATION), 0), device=self.device
+        )
+        self.gp_params: Optional[GPParams] = None
+        self.posterior = None
+
+        # dataset accumulators (host side, unpadded)
+        self.gp_x = np.zeros((0, model.gp_input_dim), np.float32)
+        self.gp_y = np.zeros((gp.num_heads, 0), np.float32)
+        self.trials: List[TrialData] = []
+        self.trial_logs: List[TrialLog] = []
+        self.num_collections = 0
+        self.num_exploration_trials = 0
+
+    # ------------------------------------------------------------ data
+
+    def _ingest(self, trial: TrialData) -> None:
+        states = torch.as_tensor(trial.measured, dtype=torch.float32)
+        inputs = torch.as_tensor(trial.inputs, dtype=torch.float32)
+        x, y = self.model.training_pairs(states, inputs)
+        self.gp_x = np.concatenate([self.gp_x, x.numpy()], axis=0)
+        self.gp_y = np.concatenate([self.gp_y, y.numpy()], axis=1)
+        self.trials.append(trial)
+        self.num_collections += 1
+
+    def _padded_data(self) -> GPData:
+        n = self.gp_x.shape[0]
+        cap = linalg.bucket_size(n, self.bucket, self.bucket)
+        x = np.zeros((cap, self.gp_x.shape[1]), np.float32)
+        y = np.zeros((self.gp_y.shape[0], cap), np.float32)
+        x[:n] = self.gp_x
+        y[:, :n] = self.gp_y
+        mask = np.zeros(cap, np.float32)
+        mask[:n] = 1.0
+        return GPData(*(torch.as_tensor(a, device=self.device) for a in (x, y, mask)))
+
+    # ------------------------------------------------------------ system IO
+
+    def _sample_x0(self, trial_index: int) -> np.ndarray:
+        k = prng.fold(prng.stream(self.key, prng.STREAM_SYSTEM), trial_index, 0xA)
+        return self.init_dist.sample_single(k).numpy()
+
+    def collect(self, T: float, trial_index: int, exploration: bool) -> TrialData:
+        """Interact with the plant and add the trial to the dataset."""
+        if self.plant is None:
+            raise RuntimeError("no plant attached")
+        pol = self.exploration_policy if exploration else self.policy
+        params = self.expl_params if exploration else self.policy_params
+        x0 = self._sample_x0(trial_index)
+        k = prng.fold(prng.stream(self.key, prng.STREAM_SYSTEM), trial_index)
+        trial = self.plant.rollout(k, x0, pol, params, T, self.dt, device=self.device)
+        self._ingest(trial)
+        if exploration:
+            self.num_exploration_trials += 1
+        return trial
+
+    # ------------------------------------------------------------ model
+
+    def fit_model(self, opts: ModelFitOptions) -> dict:
+        """Re-init the GP hyperparameters and train all heads."""
+        t0 = time.time()
+        self.gp_params = self.gp.init_params(sigma_n=self.gp_sigma_n_init, device=self.device)
+        data = self._padded_data()
+        self.gp_params, losses = self.gp.fit(
+            self.gp_params, data, num_epochs=opts.num_epochs, learning_rate=opts.learning_rate
+        )
+        info = {"mll_first": float(losses[0]), "mll_last": float(losses[-1])}
+        self.posterior = self._build_posterior(data, info)
+        info["wall_clock_s"] = time.time() - t0
+        info["num_samples"] = int(self.gp_x.shape[0])
+        return info
+
+    def _build_posterior(self, data: GPData, info: Optional[dict] = None):
+        """Exact or SOD-subset posterior, retried with 10x / 100x jitter if
+        any posterior leaf is non-finite (an fp32 Cholesky can tip over on
+        near-noiseless heads)."""
+        gp0 = self.gp
+        try:
+            for scale in (1.0, 10.0, 100.0):
+                if scale > 1.0:
+                    self.gp = dataclasses.replace(gp0, jitter=gp0.jitter * scale)
+                post = self._build_posterior_once(data, info)
+                if all(bool(torch.all(torch.isfinite(l))) for l in post):
+                    if scale > 1.0:
+                        print(f"[mc-pilco] posterior needed {scale:.0f}x jitter")
+                        if info is not None:
+                            info["jitter_scale"] = scale
+                    return post
+            raise FloatingPointError(
+                "GP posterior non-finite even at 100x jitter escalation "
+                f"(N={int(torch.sum(data.mask))}, jitter={gp0.jitter:g})"
+            )
+        finally:
+            self.gp = gp0
+
+    @torch.no_grad()
+    def _build_posterior_once(self, data: GPData, info: Optional[dict] = None):
+        if self.sod is None:
+            return self.gp.fit_posterior(self.gp_params, data)
+        sel = sod_mod.select(self.gp, self.sod, self.gp_params, data.x, data.y, data.mask)
+        sel_np = sel.cpu().numpy() > 0.5
+        if info is not None:
+            info["sod_points"] = sel_np.sum(axis=-1).tolist()
+        # compact to the UNION of the per-head subsets, padded to a tight
+        # bucket: x_tr stays shared by the heads (what the fused kernels
+        # take) and M shrinks from the padded N
+        g = self.gp.num_heads
+        union = np.where(sel_np.any(axis=0))[0]
+        m_cap = linalg.bucket_size(len(union), self.bucket, self.bucket)
+        x_np, y_np = data.x.cpu().numpy(), data.y.cpu().numpy()
+        x_tr = np.zeros((m_cap, x_np.shape[1]), np.float32)
+        x_tr[: len(union)] = x_np[union]
+        y_tr = np.zeros((g, m_cap), np.float32)
+        y_tr[:, : len(union)] = y_np[:, union]
+        mask = np.zeros((g, m_cap), np.float32)
+        mask[:, : len(union)] = sel_np[:, union].astype(np.float32)
+        return self.gp.posterior(
+            self.gp_params, *(torch.as_tensor(a, device=self.device) for a in (x_tr, mask, y_tr))
+        )
+
+    # ------------------------------------------------------------ diagnostics
+
+    @torch.no_grad()
+    def one_step_mse(self, trial_index: int = -1) -> np.ndarray:
+        """Per-head one-step prediction MSE on a stored trial."""
+        trial = self.trials[trial_index]
+        states = torch.as_tensor(trial.measured, dtype=torch.float32, device=self.device)
+        inputs = torch.as_tensor(trial.inputs, dtype=torch.float32, device=self.device)
+        x, y = self.model.training_pairs(states, inputs)
+        mean, _ = self.gp.predict(self.gp_params, self.posterior, x)
+        return torch.mean((mean - y) ** 2, dim=-1).cpu().numpy()
+
+    @torch.no_grad()
+    def rollout_mse(self, trial_index: int = -1) -> np.ndarray:
+        """Open-loop rollout MSE per state dim against a stored trial."""
+        trial = self.trials[trial_index]
+        traj = self.optimizer.engine.replay(
+            self.gp_params,
+            self.posterior,
+            torch.as_tensor(trial.measured[0], dtype=torch.float32, device=self.device),
+            torch.as_tensor(trial.inputs, dtype=torch.float32, device=self.device),
+        )
+        return np.mean((traj.cpu().numpy() - trial.measured) ** 2, axis=0)
+
+    # ------------------------------------------------------------ policy
+
+    def improve_policy(self, opts: PolicyOptOptions, trial_index: int) -> TrialLog:
+        """One policy-optimization run."""
+        t0 = time.time()
+        k = prng.fold(prng.stream(self.key, prng.STREAM_ROLLOUT), trial_index)
+        result: OptResult = self.optimizer.optimize(
+            k,
+            self.policy_params,
+            self.gp_params,
+            self.posterior,
+            num_opt_steps=opts.opt_steps,
+            lr0=opts.learning_rate,
+            p_dropout0=opts.p_dropout,
+            trial_index=trial_index,
+        )
+        self.policy_params = result.policy_params
+        steps = result.steps_done
+        log = TrialLog(
+            cost_history=result.cost_history.numpy()[:steps],
+            std_history=result.std_history.numpy()[:steps],
+            steps_done=steps,
+            particles_states=result.states.cpu().numpy(),
+            particles_inputs=result.inputs.cpu().numpy(),
+            reinit_count=result.reinit_count,
+            wall_clock_s=time.time() - t0,
+        )
+        self.trial_logs.append(log)
+        return log
+
+    # ------------------------------------------------------------ main loop
+
+    def reinforce(
+        self,
+        *,
+        num_trials: int,
+        T_exploration: float,
+        T_control: float,
+        model_fit_options: List[ModelFitOptions],
+        policy_opt_options: List[PolicyOptOptions],
+        num_explorations: int = 1,
+        verbose: bool = True,
+    ):
+        """The full MBRL loop.  Returns the list of TrialLogs."""
+        start_trial = len(self.trial_logs)
+        if self.num_collections == 0:
+            for e in range(num_explorations):
+                if verbose:
+                    print(f"[mc-pilco] exploration {e}")
+                self.collect(T_exploration, trial_index=e, exploration=True)
+
+        for trial in range(start_trial, start_trial + num_trials):
+            if verbose:
+                print(f"[mc-pilco] ===== trial {trial} =====")
+            info = self.fit_model(model_fit_options[min(trial, len(model_fit_options) - 1)])
+            if verbose:
+                print(
+                    f"[mc-pilco] model fit: N={info['num_samples']} "
+                    f"mll {info['mll_first']:.1f} -> {info['mll_last']:.1f} "
+                    f"({info['wall_clock_s']:.1f}s)"
+                    + (f" sod={info.get('sod_points')}" if "sod_points" in info else "")
+                )
+                print(f"[mc-pilco] one-step MSE (last trial): {self.one_step_mse()}")
+                print(f"[mc-pilco] rollout MSE  (last trial): {self.rollout_mse()}")
+
+            log = self.improve_policy(
+                policy_opt_options[min(trial, len(policy_opt_options) - 1)], trial
+            )
+            if verbose:
+                c = log.cost_history
+                cost_span = f"{c[0]:.2f} -> {c[-1]:.2f}" if len(c) else "(no steps)"
+                print(
+                    f"[mc-pilco] policy opt: {log.steps_done} steps, cost "
+                    f"{cost_span}, reinits={log.reinit_count}, "
+                    f"{log.wall_clock_s:.1f}s "
+                    f"({1e3 * log.wall_clock_s / max(log.steps_done, 1):.2f} ms/step)"
+                )
+
+            if self.plant is not None:
+                self.collect(T_control, trial_index=self.num_collections, exploration=False)
+                if verbose:
+                    print(f"[mc-pilco] pre-update one-step MSE: {self.one_step_mse()}")
+                    print(f"[mc-pilco] pre-update rollout  MSE: {self.rollout_mse()}")
+        return self.trial_logs

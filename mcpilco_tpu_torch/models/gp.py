@@ -1,0 +1,315 @@
+"""Stacked multi-head exact GP regression on tensors.
+
+All heads share one kernel structure; their hyperparameters are stacked
+under a leading head axis G, and every operation (MLL epoch, posterior build,
+prediction) runs all heads as one set of batched ops, as
+``mcpilco_tpu/models/gp.py`` does with ``vmap``.  Datasets are padded to a
+bucketed capacity with a validity mask (``ops/linalg.py``).
+
+Math (as in the JAX package):
+- MLL loss = 0.5 (y^T K^-1 y + log|K|), the N log 2 pi constant dropped.
+- Posterior cache {alpha, F = L^-T, X_tr}: mean = m* + k*^T alpha,
+  var = k**_diag - sum((k* F)^2), floored at jitter * k**_diag.
+- Optional per-head max-abs output normalization, applied to both the fit
+  and the posterior.
+
+``predict`` dispatches on the device: on the card, the flagship kernel
+structures run the fused CUDA kernels (``ops/fused_predict.py``); on the
+CPU, the plain batched ops below.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..ops import fused_predict as fp
+from ..ops import linalg
+from . import kernels as K
+
+
+class GPData(NamedTuple):
+    """Padded training set shared across heads.
+
+    x: [N_cap, D] inputs; y: [G, N_cap] per-head targets; mask: [N_cap].
+    """
+
+    x: torch.Tensor
+    y: torch.Tensor
+    mask: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.x.shape[0]
+
+
+class Posterior(NamedTuple):
+    """Cached posterior for rollout-time prediction.
+
+    ``x_tr`` [M, D] is shared by all heads (per-head subsets are per-head
+    ``mask`` rows).  ``var_factor`` is F = L^-T (K^-1 = F F^T), so the quad
+    term is ``sum((k* F)^2)``.  ``norm`` rescales to output units.
+    """
+
+    x_tr: torch.Tensor  # [M, D]
+    mask: torch.Tensor  # [G, M]
+    alpha: torch.Tensor  # [G, M]
+    var_factor: torch.Tensor  # [G, M, M]
+    norm: torch.Tensor  # [G]
+
+
+class GPParams(NamedTuple):
+    kernel: object  # tree, leading axis G on every leaf
+    log_sigma_n: torch.Tensor  # [G]
+
+
+def tree_map(fn, *trees):
+    """Map ``fn`` over the leaves of same-structured trees (dict keys in
+    sorted order, as JAX flattens them)."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: tree_map(fn, *(x[k] for x in trees)) for k in sorted(t)}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(tree_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(t, (tuple, list)):
+        return type(t)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def _leaves(tree):
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiGP:
+    """Static config for a stack of ``num_heads`` exact GPs with a shared
+    kernel structure and per-head measurement noise."""
+
+    kernel: K.Kernel
+    num_heads: int
+    # relative diagonal jitter (see mcpilco_tpu/models/gp.py:125-129)
+    jitter: float = 1e-4
+    train_sigma_n: bool = True
+    normalize_outputs: bool = False
+
+    # ---------------- parameter init ----------------
+
+    def init_params(self, sigma_n=1.0, per_head_overrides=None, dtype=torch.float32,
+                    device="cpu") -> GPParams:
+        """Stack per-head kernel params under a leading head axis."""
+        ov = per_head_overrides or [{}] * self.num_heads
+        per_head = [self.kernel.init_params(dtype=dtype, device=device, **o) for o in ov]
+        stacked = tree_map(lambda *xs: torch.stack(xs), *per_head)
+        sn = torch.full((self.num_heads,), float(sigma_n), dtype=dtype, device=device)
+        return GPParams(kernel=stacked, log_sigma_n=torch.log(sn))
+
+    def param_mask(self, params: GPParams) -> GPParams:
+        return GPParams(kernel=self.kernel.param_mask(params.kernel),
+                        log_sigma_n=self.train_sigma_n)
+
+    # ---------------- core math (all heads) ----------------
+
+    def _noisy_gram(self, kparams, log_sigma_n, x, mask):
+        """K(x,x) + (sigma_n^2 + adaptive jitter) I: [G, N, N]."""
+        Kx = self.kernel.gram(kparams, x, x)
+        jit = linalg.adaptive_jitter(Kx, mask, rel=self.jitter, floor=self.jitter)
+        noise = torch.exp(2.0 * log_sigma_n) + jit
+        eye = torch.eye(x.shape[-2], dtype=x.dtype, device=x.device)
+        return Kx + noise[:, None, None] * eye
+
+    def _mean(self, kparams, x):
+        m = self.kernel.mean(kparams, x)
+        return m.expand(self.num_heads, *m.shape[-1:])
+
+    def mll(self, params: GPParams, data: GPData, norm: Optional[torch.Tensor] = None):
+        """Sum over heads of the negative marginal log-likelihood."""
+        if norm is None:
+            norm = torch.ones(self.num_heads, dtype=data.x.dtype, device=data.x.device)
+        mask = data.mask.expand(self.num_heads, -1)
+        Kn = self._noisy_gram(params.kernel, params.log_sigma_n, data.x, mask)
+        L = linalg.masked_cholesky(Kn, mask)
+        resid = (data.y / norm[:, None] - self._mean(params.kernel, data.x)) * mask
+        alpha = linalg.chol_solve(L, resid[..., None])[..., 0]
+        logdet = linalg.masked_logdet_from_chol(L, mask)
+        return torch.sum(0.5 * (torch.sum(resid * alpha, dim=-1) + logdet))
+
+    def output_norms(self, data: GPData) -> torch.Tensor:
+        """Per-head max-abs output normalizers."""
+        if not self.normalize_outputs:
+            return torch.ones(self.num_heads, dtype=data.x.dtype, device=data.x.device)
+        m = torch.amax(torch.abs(data.y) * data.mask[None, :], dim=-1)
+        return torch.clamp(m, min=torch.finfo(data.x.dtype).tiny)
+
+    def fit(self, params: GPParams, data: GPData, num_epochs: int, learning_rate: float = 0.01):
+        """Full-batch Adam on the MLL of all heads (optax.adam semantics),
+        frozen leaves held fixed, with the backtracking NaN guard of
+        ``mcpilco_tpu/models/gp.py:288-333``.
+
+        The guard runs on the device with no host sync: a step whose loss or
+        update is non-finite reverts params and optimizer state to the last
+        iterate whose loss evaluated finite and halves the step scale, which
+        recovers by 2^(1/50) per finite epoch.  A healthy fit keeps the scale
+        at exactly 1.
+
+        Returns (params, loss_history [num_epochs]).
+        """
+        norm = self.output_norms(data)
+        trainable = [bool(m) for m in _leaves(self.param_mask(params))]
+        idx = [i for i, t in enumerate(trainable) if t]
+        opts = dict(dtype=data.x.dtype, device=data.x.device)
+        p = [l.detach().clone() for l in _leaves(params)]
+        # optimizer state: Adam moments of the trainable leaves and the count
+        s = ([torch.zeros_like(p[i]) for i in idx], [torch.zeros_like(p[i]) for i in idx],
+             torch.zeros((), **opts))
+        good_p, good_s = p, s
+        lr_scale = torch.ones((), **opts)
+        last_loss = torch.full((), math.inf, **opts)
+        recover = 2.0 ** (1.0 / 50.0)
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        history = []
+        for _ in range(num_epochs):
+            cur = [t.detach().requires_grad_(tr) for t, tr in zip(p, trainable)]
+            loss = self.mll(_unflatten(params, cur), data, norm)
+            grads = torch.autograd.grad(loss, [cur[i] for i in idx])
+            with torch.no_grad():
+                mu, nu, count = s
+                cnt = count + 1
+                mu_n = [b1 * m + (1 - b1) * g for m, g in zip(mu, grads)]
+                nu_n = [b2 * v + (1 - b2) * g * g for v, g in zip(nu, grads)]
+                bc1, bc2 = 1 - b1**cnt, 1 - b2**cnt
+                upd = [-learning_rate * (m / bc1) / (torch.sqrt(v / bc2) + eps) * lr_scale
+                       for m, v in zip(mu_n, nu_n)]
+                finite = torch.isfinite(loss)
+                for u in upd:
+                    finite = finite & torch.all(torch.isfinite(u))
+                p_cur = [t.detach() for t in cur]
+                p_new = list(p_cur)
+                for j, i in enumerate(idx):
+                    p_new[i] = p_cur[i] + upd[j]
+                s_new = (mu_n, nu_n, cnt)
+
+                def sel(new, old):
+                    return tree_map(lambda a, b: torch.where(finite, a, b), new, old)
+
+                # finite: advance, and the current iterate becomes last-good;
+                # non-finite: back to last-good params AND state
+                p, s, good_p, good_s = (sel(p_new, good_p), sel(s_new, good_s),
+                                        sel(p_cur, good_p), sel(s, good_s))
+                lr_scale = torch.where(finite, torch.clamp(lr_scale * recover, max=1.0),
+                                       lr_scale * 0.5)
+                last_loss = torch.where(finite, loss, last_loss)
+                history.append(last_loss)
+        return _unflatten(params, p), torch.stack(history)
+
+    def posterior(self, params: GPParams, x_tr, mask, y) -> Posterior:
+        """Build the cached posterior in factor form F = L^-T.
+        ``x_tr``: [M, D] shared; ``mask``: [G, M]; ``y``: [G, M]."""
+        if self.normalize_outputs:
+            norm = torch.clamp(torch.amax(torch.abs(y) * mask, dim=-1),
+                               min=torch.finfo(y.dtype).tiny)
+        else:
+            norm = torch.ones(self.num_heads, dtype=y.dtype, device=y.device)
+        Kn = self._noisy_gram(params.kernel, params.log_sigma_n, x_tr, mask)
+        L = linalg.masked_cholesky(Kn, mask)
+        resid = (y / norm[:, None] - self._mean(params.kernel, x_tr)) * mask
+        alpha = linalg.chol_solve(L, resid[..., None])[..., 0] * mask
+        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
+        F = torch.linalg.solve_triangular(L, eye, upper=False).mT
+        F = F * (mask[:, :, None] * mask[:, None, :])
+        return Posterior(x_tr=x_tr, mask=mask, alpha=alpha, var_factor=F, norm=norm)
+
+    def fit_posterior(self, params: GPParams, data: GPData) -> Posterior:
+        """Posterior over the full (shared) dataset."""
+        mask = data.mask.expand(self.num_heads, -1)
+        return self.posterior(params, data.x, mask, data.y)
+
+    # ---------------- prediction ----------------
+
+    def predict(self, params: GPParams, post: Posterior, x_star: torch.Tensor):
+        """Posterior (mean, var) at ``x_star`` [P, D] for all heads: [G, P] each.
+
+        On the card, the 'se' and 'se+p2' structures run the fused kernels;
+        every other case, and every CPU tensor, runs the plain batched ops.
+        """
+        if x_star.is_cuda and self._fused_structure() is not None:
+            return self._predict_fused(params, post, x_star)
+        return self._predict_plain(params, post, x_star)
+
+    def _predict_plain(self, params: GPParams, post: Posterior, x_star):
+        kp = params.kernel
+        k_star = self.kernel.gram(kp, x_star, post.x_tr) * post.mask[:, None, :]  # [G, P, M]
+        mean = self._mean(kp, x_star) + torch.einsum("gpm,gm->gp", k_star, post.alpha)
+        kf = torch.matmul(k_star, post.var_factor)
+        quad = torch.sum(kf * kf, dim=-1)
+        return self._epilogue(kp, post, x_star, mean, quad)
+
+    def _epilogue(self, kp, post: Posterior, x_star, mean, quad):
+        # floor at jitter * prior diag, not 0: near interpolation the true
+        # variance is ~0 and d(sqrt(var))/d(var) would amplify fp32 roundoff
+        # in BPTT (mcpilco_tpu/models/gp.py:230-236)
+        diag = self.kernel.diag(kp, x_star).expand_as(quad)
+        var = torch.maximum(diag - quad, self.jitter * diag)
+        return mean * post.norm[:, None], var * (post.norm**2)[:, None]
+
+    def _fused_structure(self):
+        """'se' | 'se+p2' | None: does the kernel match a fused structure
+        (full active_dims in identity order)?"""
+
+        def full_dims(kk):
+            return kk.active_dims is not None and list(kk.active_dims) == list(
+                range(len(kk.active_dims))
+            )
+
+        k = self.kernel
+        if isinstance(k, K.SEArd) and full_dims(k):
+            return "se"
+        if (
+            isinstance(k, K.Sum)
+            and len(k.members) == 3
+            and isinstance(k.members[0], K.SEArd)
+            and isinstance(k.members[1], K.MPK)
+            and isinstance(k.members[2], K.MPK)
+            and k.members[1].degree == 1
+            and k.members[1].offset
+            and k.members[2].degree == 2
+            and not k.members[2].offset
+            and all(full_dims(m) for m in k.members)
+        ):
+            return "se+p2"
+        return None
+
+    def _predict_fused(self, params: GPParams, post: Posterior, x_star):
+        """Predict through :class:`~..ops.fused_predict.GramContract`, then
+        add the prior mean, take diag - quad, floor and rescale."""
+        structure = self._fused_structure()
+        kp = params.kernel
+        G, dt, dev = self.num_heads, x_star.dtype, x_star.device
+        if structure == "se":
+            se = kp
+            d = se["log_lengthscales"].shape[-1]
+            poly1 = torch.zeros((G, d + 1), dtype=dt, device=dev)
+            poly2a = torch.zeros((G, d), dtype=dt, device=dev)
+            poly2b = torch.zeros((G, d), dtype=dt, device=dev)
+        else:
+            se = kp[0]
+            poly1 = torch.exp(2.0 * kp[1]["log_sigma_diag"][:, 0, :])
+            poly2a = torch.exp(2.0 * kp[2]["log_sigma_diag"][:, 0, :])
+            poly2b = torch.exp(2.0 * kp[2]["log_sigma_diag"][:, 1, :])
+        se_w = torch.exp(-2.0 * se["log_lengthscales"])
+        se_lam = torch.exp(se["log_lambda"]).reshape(G)
+        kalpha, quad = fp.gram_contract(
+            se_w, se_lam, poly1, poly2a, poly2b, x_star, post.x_tr, post.alpha,
+            post.var_factor, post.mask, structure == "se+p2",
+        )
+        mean = self._mean(kp, x_star) + kalpha
+        return self._epilogue(kp, post, x_star, mean, quad)
+
+
+def _unflatten(structure, leaves):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), structure)

@@ -1,0 +1,213 @@
+"""Control and exploration policies as functions of parameter dicts.
+
+Every policy is a static config object with (``mcpilco_tpu/models/policies.py``):
+
+- ``init_params(key, device, dtype) -> params`` (empty dict if parameter-free)
+- ``apply(params, states, t, key=None, p_dropout=0.0, keep=None) -> actions``,
+  batched over a leading particle axis and differentiable w.r.t. ``params``
+  and ``states``.  ``key`` is a ``utils.prng`` key; ``keep`` is an optional
+  dropout keep-mask that replaces the draw, so tests can share it.
+- ``param_mask(params)`` and ``reinit(params, key)``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..utils import prng
+from .kernels import _as_tuple
+
+
+def squash(u: torch.Tensor, u_max) -> torch.Tensor:
+    """Smoothly constrain inputs to (-u_max, u_max)."""
+    um = torch.as_tensor(u_max, dtype=u.dtype, device=u.device)
+    return um * torch.tanh(u / um)
+
+
+def _umax_static(u_max):
+    a = np.asarray(u_max, float)
+    return float(a) if a.ndim == 0 else tuple(float(x) for x in a.reshape(-1))
+
+
+class PolicyBase:
+    """Static config base class; see module docstring for the contract."""
+
+    input_dim: int
+
+    def init_params(self, key, device="cpu", dtype=torch.float32) -> dict:
+        return {}
+
+    def param_mask(self, params):
+        return {k: False for k in params}
+
+    def apply(self, params, states, t, key=None, p_dropout=0.0, keep=None):
+        raise NotImplementedError
+
+    def reinit(self, params, key):
+        return params
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomExploration(PolicyBase):
+    """Uniform random action in (-u_max, u_max) each step, squashed."""
+
+    state_dim: int
+    input_dim: int
+    u_max: float = 1.0
+
+    def apply(self, params, states, t, key=None, p_dropout=0.0, keep=None):
+        if key is None:
+            raise ValueError("RandomExploration needs a key")
+        gen = prng.generator(prng.fold(key, t), states.device)
+        u = torch.rand(states.shape[:-1] + (self.input_dim,), generator=gen,
+                       dtype=states.dtype, device=states.device)
+        return squash(self.u_max * (2.0 * u - 1.0), self.u_max)
+
+
+@dataclasses.dataclass(frozen=True)
+class SumOfGaussians(PolicyBase):
+    """The trainable controller: squashed RBF network with feature dropout,
+    u = squash(W @ dropout(exp(-||(s/scale - c)/l||^2)))."""
+
+    feature_dim: int
+    input_dim: int
+    num_basis: int
+    u_max: float = 1.0
+    squash_output: bool = True
+    use_bias: bool = False
+    train_lengthscales: bool = True
+    train_centers: bool = True
+    train_weight: bool = True
+    train_bias: bool = False
+    centers_init_min: float = -1.0
+    centers_init_max: float = 1.0
+    scale_factor: Optional[Tuple[float, ...]] = None
+    reinit_lengthscales: Optional[Tuple[float, ...]] = None
+    reinit_centers: Optional[Tuple[float, ...]] = None
+    reinit_weight: Optional[float] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "u_max", _umax_static(self.u_max))
+        for f in ("scale_factor", "reinit_lengthscales", "reinit_centers"):
+            v = getattr(self, f)
+            if v is not None:
+                object.__setattr__(self, f, tuple(float(x) for x in np.asarray(v).reshape(-1)))
+
+    def _umax_col(self, dtype, device):
+        um = torch.as_tensor(self.u_max, dtype=dtype, device=device)
+        return um.reshape(-1, 1) if um.ndim else um
+
+    def init_params(self, key, lengthscales=None, centers=None, weight=None, bias=None,
+                    device="cpu", dtype=torch.float32) -> dict:
+        opts = dict(dtype=dtype, device=device)
+        gen = prng.generator(key, device)
+        nf, nb = self.feature_dim, self.num_basis
+        ls = torch.ones(nf, **opts)
+        if lengthscales is not None:
+            ls = ls * torch.as_tensor(lengthscales, **opts)
+        if centers is None:
+            centers = self.centers_init_min + (self.centers_init_max - self.centers_init_min) * (
+                torch.rand((nb, nf), generator=gen, **opts)
+            )
+        if weight is None:
+            weight = self._umax_col(dtype, device) * (
+                torch.rand((self.input_dim, nb), generator=gen, **opts) - 0.5
+            )
+        p = {
+            "log_lengthscales": torch.log(ls),
+            "centers": torch.as_tensor(centers, **opts),
+            "weight": torch.as_tensor(weight, **opts),
+        }
+        if self.use_bias:
+            p["bias"] = torch.zeros(self.input_dim, **opts) if bias is None else torch.as_tensor(bias, **opts)
+        return p
+
+    def param_mask(self, params):
+        m = {
+            "log_lengthscales": self.train_lengthscales,
+            "centers": self.train_centers,
+            "weight": self.train_weight,
+        }
+        if "bias" in params:
+            m["bias"] = self.train_bias
+        return m
+
+    def reinit(self, params, key):
+        """Randomized re-init on NaN: centers ~ c*2(U-.5), weight ~ w*(U-.5),
+        lengthscales reset to the configured values."""
+        c = params["centers"]
+        opts = dict(dtype=c.dtype, device=c.device)
+        gen = prng.generator(key, c.device)
+        if self.reinit_lengthscales is not None:
+            ls = torch.as_tensor(self.reinit_lengthscales, **opts) * torch.ones(self.feature_dim, **opts)
+        else:
+            ls = torch.exp(params["log_lengthscales"])
+        c_mag = torch.as_tensor(
+            self.reinit_centers if self.reinit_centers is not None else (1.0,) * self.feature_dim,
+            **opts,
+        )
+        w_mag = torch.as_tensor(
+            self.reinit_weight if self.reinit_weight is not None else self.u_max, **opts
+        )
+        w_mag = w_mag.reshape(-1, 1) if w_mag.ndim else w_mag
+        new = dict(params)
+        new["log_lengthscales"] = torch.log(ls)
+        new["centers"] = c_mag * 2.0 * (torch.rand(c.shape, generator=gen, **opts) - 0.5)
+        new["weight"] = w_mag * (torch.rand(params["weight"].shape, generator=gen, **opts) - 0.5)
+        return new
+
+    def features(self, params, policy_in):
+        """exp(-squared distance to centers): [..., num_basis]."""
+        if self.scale_factor is not None:
+            policy_in = policy_in / torch.as_tensor(self.scale_factor, dtype=policy_in.dtype,
+                                                    device=policy_in.device)
+        ls = torch.exp(params["log_lengthscales"])
+        s = policy_in / ls
+        c = params["centers"] / ls
+        # direct differences: cancellation-free (see kernels.sq_dist)
+        diff = s[..., :, None, :] - c[None, :, :]
+        return torch.exp(-torch.sum(diff * diff, dim=-1))
+
+    def _policy_input(self, states, t):
+        return states
+
+    def dropout_keep(self, key, shape, p_dropout, device):
+        """The Bernoulli keep-mask of one dropout draw."""
+        gen = prng.generator(key, device)
+        return torch.rand(shape, generator=gen, device=device) < max(1.0 - p_dropout, 1e-6)
+
+    def apply(self, params, states, t, key=None, p_dropout=0.0, keep=None):
+        feats = self.features(params, self._policy_input(states, t))
+        p = float(p_dropout)
+        if p > 0 and (key is not None or keep is not None):
+            if keep is None:
+                keep = self.dropout_keep(key, feats.shape, p, feats.device)
+            # inverted dropout: rescale the kept features by 1 / keep-prob
+            feats = feats * keep.to(feats.dtype) / max(1.0 - p, 1e-6)
+        u = torch.matmul(feats, params["weight"].T)
+        if "bias" in params:
+            u = u + params["bias"]
+        return squash(u, self.u_max) if self.squash_output else u
+
+
+@dataclasses.dataclass(frozen=True)
+class SumOfGaussiansWithAngles(SumOfGaussians):
+    """Angle dims mapped to (cos, sin) before the RBF net.
+    ``feature_dim`` must equal state_dim + len(angle_indices)."""
+
+    angle_indices: Tuple[int, ...] = ()
+    non_angle_indices: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(self, "angle_indices", _as_tuple(self.angle_indices))
+        object.__setattr__(self, "non_angle_indices", _as_tuple(self.non_angle_indices))
+
+    def _policy_input(self, states, t):
+        ang = states[..., list(self.angle_indices)]
+        rest = states[..., list(self.non_angle_indices)]
+        return torch.cat([rest, torch.cos(ang), torch.sin(ang)], dim=-1)

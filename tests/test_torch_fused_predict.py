@@ -1,0 +1,112 @@
+"""The port's fused-predict twin and GramContract (CPU path) against the JAX
+package's Pallas kernel (interpret mode) and its plain-jnp twin.
+
+The same numpy inputs go through both packages.  Tolerances are those of
+tests/test_fused_predict.py: forward rtol 2e-5 / atol 1e-5 (float32 sums in a
+different order), x* gradient rtol 1e-4 / atol 1e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mcpilco_tpu.ops import fused_predict as jfp
+from mcpilco_tpu_torch.ops import fused_predict as tfp
+
+torch.set_num_threads(1)
+
+FWD = dict(rtol=2e-5, atol=1e-5)
+GRAD = dict(rtol=1e-4, atol=1e-4)
+
+
+def _inputs(G=2, P=50, M=64, D=6, seed=0):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return [
+        np.exp(0.3 * f(G, D)), np.exp(0.2 * f(G)), 0.1 * np.exp(0.3 * f(G, D + 1)),
+        0.1 * np.exp(0.3 * f(G, D)), 0.1 * np.exp(0.3 * f(G, D)), f(P, D), f(M, D), f(G, M),
+        0.05 * f(G, M, M), (rng.uniform(size=(G, M)) > 0.2).astype(np.float32),
+    ]
+
+
+def _cotangents(P, G=2):
+    wk = np.linspace(0.5, 1.5, G * P, dtype=np.float32).reshape(G, P)
+    wq = np.linspace(-1.0, 1.0, G * P, dtype=np.float32).reshape(G, P)
+    return wk, wq
+
+
+@pytest.mark.parametrize("use_poly", [False, True])
+@pytest.mark.parametrize("P", [37, 50])
+def test_forward_matches_pallas_and_jnp_twin(use_poly, P):
+    args = _inputs(P=P, seed=P)
+    ka_p, qd_p = jfp.gram_contract(*map(jnp.asarray, args), use_poly, True)
+    ka_j, qd_j = jfp._reference_gram_contract(*map(jnp.asarray, args), use_poly)
+    t_args = [torch.as_tensor(a) for a in args]
+    ka_t, qd_t = tfp.reference_gram_contract(*t_args, use_poly)
+    ka_g, qd_g = tfp.gram_contract(*t_args, use_poly)
+    for ref in ((ka_p, qd_p), (ka_j, qd_j)):
+        for port in ((ka_t, qd_t), (ka_g, qd_g)):
+            np.testing.assert_allclose(port[0].numpy(), np.asarray(ref[0]), **FWD)
+            np.testing.assert_allclose(port[1].numpy(), np.asarray(ref[1]), **FWD)
+    assert ka_t.shape == (2, P)
+
+
+@pytest.mark.parametrize("use_poly", [False, True])
+@pytest.mark.parametrize("P", [37, 50])
+def test_xstar_gradient_matches_pallas_backward(use_poly, P):
+    """x*'s cotangent through GramContract (CPU path) against the JAX
+    custom_vjp, whose x* cotangent comes from the Pallas backward kernel."""
+    args = _inputs(P=P, seed=100 + P)
+    wk, wq = _cotangents(P)
+
+    def loss_jax(xs):
+        a = list(map(jnp.asarray, args))
+        a[5] = xs
+        ka, qd = jfp.gram_contract(*a, use_poly, True)
+        return jnp.sum(wk * ka) + jnp.sum(wq * qd)
+
+    g_jax = np.asarray(jax.jit(jax.grad(loss_jax))(jnp.asarray(args[5])))
+    t_args = [torch.as_tensor(a) for a in args]
+    xs = t_args[5].clone().requires_grad_(True)
+    t_args[5] = xs
+    ka, qd = tfp.gram_contract(*t_args, use_poly)
+    loss = torch.sum(torch.as_tensor(wk) * ka) + torch.sum(torch.as_tensor(wq) * qd)
+    (g_t,) = torch.autograd.grad(loss, xs)
+    np.testing.assert_allclose(g_t.numpy(), g_jax, **GRAD)
+
+
+def test_other_input_gradients_come_from_the_twin():
+    """alpha's and F's cotangents, asked for explicitly, match JAX."""
+    args = _inputs(P=12, M=32, seed=5)
+
+    def loss_jax(alpha, f):
+        a = list(map(jnp.asarray, args))
+        a[7], a[8] = alpha, f
+        ka, qd = jfp.gram_contract(*a, True, True)
+        return jnp.sum(ka * qd)
+
+    g_jax = jax.jit(jax.grad(loss_jax, argnums=(0, 1)))(jnp.asarray(args[7]),
+                                                        jnp.asarray(args[8]))
+    t_args = [torch.as_tensor(a) for a in args]
+    t_args[7].requires_grad_(True)
+    t_args[8].requires_grad_(True)
+    ka, qd = tfp.gram_contract(*t_args, True)
+    g_t = torch.autograd.grad(torch.sum(ka * qd), (t_args[7], t_args[8]))
+    for a, b in zip(g_t, g_jax):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)
+
+
+def test_cpu_path_launches_no_kernel_and_kernel_wrappers_refuse_cpu_tensors():
+    args = [torch.as_tensor(a) for a in _inputs(P=8, M=16)]
+    before = dict(tfp.launches)
+    xs = args[5].clone().requires_grad_(True)
+    ka, qd = tfp.gram_contract(*args[:5], xs, *args[6:], True)
+    torch.autograd.grad(ka.sum() + qd.sum(), xs)
+    assert tfp.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tfp.fused_gram_contract(*args, True)
+    g = torch.ones(2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfp.fused_gram_contract_bwd_xstar(*args, g, g, True)
