@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from .. import disable_tf32
-from ..envs.plants import TrialData
+from ..envs.plants import TrialData, offline_velocity_estimation
 from ..models import sod as sod_mod
 from ..models.costs import CostBase
 from ..models.dynamics import DynamicsModel
@@ -77,10 +77,14 @@ class MCPilco:
         plant=None,
         init_dist: Optional[InitialStateDistribution] = None,
         sod: Optional[sod_mod.SODConfig] = None,
+        offline_filtering: bool = False,
+        offline_filter_cutoff: float = 0.5,
+        offline_filter_method: str = "butter_cd",
         gp_sigma_n_init: float = 1.0,
         seed: int = 1,
         log_dir: Optional[str] = None,
         bucket: int = 64,
+        fixed_initial_state: bool = False,
     ):
         if log_dir:
             raise NotImplementedError("checkpoints (log_dir) are not ported yet")
@@ -96,9 +100,15 @@ class MCPilco:
         self.plant = plant
         self.init_dist = init_dist or optimizer.init_dist
         self.sod = sod
+        # 4PMS model data: velocities re-estimated offline from the noisy
+        # positions (envs.plants.offline_velocity_estimation)
+        self.offline_filtering = offline_filtering
+        self.offline_filter_cutoff = offline_filter_cutoff
+        self.offline_filter_method = offline_filter_method
         self.gp_sigma_n_init = gp_sigma_n_init
         self.seed = seed
         self.bucket = bucket
+        self.fixed_initial_state = fixed_initial_state
 
         self.key = prng.root_key(seed)
         self.policy_params = policy.init_params(
@@ -143,6 +153,9 @@ class MCPilco:
     # ------------------------------------------------------------ system IO
 
     def _sample_x0(self, trial_index: int) -> np.ndarray:
+        if self.fixed_initial_state:
+            mean = np.asarray(self.init_dist.mean, np.float32)
+            return mean[0] if mean.ndim == 2 else mean
         k = prng.fold(prng.stream(self.key, prng.STREAM_SYSTEM), trial_index, 0xA)
         return self.init_dist.sample_single(k).numpy()
 
@@ -155,6 +168,14 @@ class MCPilco:
         x0 = self._sample_x0(trial_index)
         k = prng.fold(prng.stream(self.key, prng.STREAM_SYSTEM), trial_index)
         trial = self.plant.rollout(k, x0, pol, params, T, self.dt, device=self.device)
+        if self.offline_filtering:
+            states, inputs = offline_velocity_estimation(
+                trial.noisy, trial.inputs, self.dt, self.model.pos_indices,
+                self.model.vel_indices, filt_cutoff=self.offline_filter_cutoff,
+                method=self.offline_filter_method,
+            )
+            trial = TrialData(measured=states, inputs=inputs, true=trial.true[1:-1],
+                              noisy=trial.noisy[1:-1])
         self._ingest(trial)
         if exploration:
             self.num_exploration_trials += 1

@@ -8,6 +8,8 @@ runs it as a ``lax.scan``) whose step does, for all particles at once:
     s' = model.next_state(s, u, mu + sqrt(var) * eps)
     u' = policy(theta, s', t)
 
+With :class:`PMSSensors` (4PMS), the policy sees ``sensor(s')`` instead:
+noisy positions and online-filtered finite-difference velocities.
 Everything is differentiable w.r.t. the policy parameters (BPTT through the
 loop).  The rollout's random numbers are drawn up front, one tensor per
 stream, from generators seeded by the rollout key (:class:`RolloutNoise`);
@@ -22,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models import filters
 from ..models.dynamics import DynamicsModel
 from ..models.gp import MultiGP, Posterior
 from ..models.policies import PolicyBase
@@ -30,28 +33,54 @@ from ..utils import prng
 
 @dataclasses.dataclass(frozen=True)
 class InitialStateDistribution:
-    """Initial particle distribution; only kind='gaussian' (mean/var) is
-    ported so far."""
+    """Initial particle distribution.
+
+    kind: 'gaussian' (mean/var), 'uniform' (low/high), or 'multi_gauss'
+    (rows of mean/var are mixture components, picked uniformly).
+    """
 
     kind: str
     mean: Tuple = ()
     var: Tuple = ()
+    low: Tuple = ()
+    high: Tuple = ()
 
     def __post_init__(self):
-        if self.kind != "gaussian":
-            raise NotImplementedError(f"initial distribution kind {self.kind!r} is not ported yet")
-        for f in ("mean", "var"):
+        if self.kind not in ("gaussian", "uniform", "multi_gauss"):
+            raise ValueError(f"unknown initial distribution kind: {self.kind}")
+        for f in ("mean", "var", "low", "high"):
             v = np.asarray(getattr(self, f), float)
-            object.__setattr__(self, f, tuple(float(x) for x in v.reshape(-1)))
+            object.__setattr__(
+                self, f,
+                tuple(tuple(float(x) for x in row) for row in v) if v.ndim == 2
+                else tuple(float(x) for x in v.reshape(-1)),
+            )
 
     def sample(self, key, num_particles: int, device, dtype=torch.float32,
-               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """[num_particles, ds] draws; ``eps`` replaces the standard-normal draw."""
-        mean = torch.as_tensor(self.mean, dtype=dtype, device=device)
-        std = torch.sqrt(torch.as_tensor(self.var, dtype=dtype, device=device))
+               eps: Optional[torch.Tensor] = None,
+               idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[num_particles, ds] draws.  ``eps`` [num_particles, ds] replaces the
+        base draw (uniform on [0, 1) for 'uniform', standard normal
+        otherwise); ``idx`` [num_particles] replaces the component draw of
+        'multi_gauss'."""
+        gen = None
+        if eps is None or (self.kind == "multi_gauss" and idx is None):
+            gen = prng.generator(key, device)
+        opts = dict(dtype=dtype, device=device)
+        if self.kind == "uniform":
+            lo, hi = (torch.as_tensor(v, **opts) for v in (self.low, self.high))
+            if eps is None:
+                eps = torch.rand((num_particles, lo.shape[0]), generator=gen, **opts)
+            return lo + (hi - lo) * eps
+        mean = torch.as_tensor(self.mean, **opts)
+        std = torch.sqrt(torch.as_tensor(self.var, **opts))
+        if self.kind == "multi_gauss":
+            if idx is None:
+                idx = torch.randint(0, mean.shape[0], (num_particles,), generator=gen,
+                                    device=device)
+            mean, std = mean[idx], std[idx]
         if eps is None:
-            eps = torch.randn((num_particles, mean.shape[0]), dtype=dtype, device=device,
-                              generator=prng.generator(key, device))
+            eps = torch.randn((num_particles, mean.shape[-1]), generator=gen, **opts)
         return mean + std * eps
 
     def sample_single(self, key, device="cpu", dtype=torch.float32) -> torch.Tensor:
@@ -59,8 +88,36 @@ class InitialStateDistribution:
         return self.sample(key, 1, device, dtype)[0]
 
 
+@dataclasses.dataclass(frozen=True)
+class PMSSensors:
+    """Partially-measurable-system sensor model used inside rollouts:
+    positions measured with Gaussian noise, velocities by causal
+    differentiation and an online 1st-order Butterworth low-pass."""
+
+    pos_indices: Tuple[int, ...]
+    vel_indices: Tuple[int, ...]
+    std_pos_noise: Tuple[float, ...]
+    fc: float  # normalized cutoff (Nyquist units) of butter(1, fc)
+    dt: float
+
+    def __post_init__(self):
+        for f in ("pos_indices", "vel_indices"):
+            object.__setattr__(self, f, tuple(int(i) for i in np.asarray(getattr(self, f))))
+        object.__setattr__(
+            self, "std_pos_noise",
+            tuple(float(v) for v in np.asarray(self.std_pos_noise).reshape(-1)),
+        )
+
+    def coeffs(self, dtype=torch.float32):
+        """butter(1, fc) as Python floats rounded to ``dtype``, the precision
+        the rollout computes in."""
+        b, a = filters.butter1(self.fc)
+        return (tuple(torch.as_tensor(b, dtype=dtype).tolist()),
+                tuple(torch.as_tensor(a, dtype=dtype).tolist()))
+
+
 class RolloutResult(NamedTuple):
-    states: torch.Tensor  # [T, P, ds]
+    states: torch.Tensor  # [T, P, ds] true states (the cost reads these)
     inputs: torch.Tensor  # [T, P, du]
 
 
@@ -70,12 +127,15 @@ class RolloutNoise(NamedTuple):
     state: [T-1, P, G] standard normals of the next-state draws;
     keep:  [T, P, num_basis] dropout keep-masks of the policy, or None;
     init:  [P, ds] standard normals of the initial particles, or None
-           (read by the policy optimizer, not by ``simulate``).
+           (read by the policy optimizer, not by ``simulate``);
+    meas:  [T-1, P, n_pos] standard normals of the simulated position
+           measurements (rollouts with sensors only), or None.
     """
 
     state: torch.Tensor
     keep: Optional[torch.Tensor] = None
     init: Optional[torch.Tensor] = None
+    meas: Optional[torch.Tensor] = None
 
 
 class _ClipBPTT(torch.autograd.Function):
@@ -104,22 +164,31 @@ class RolloutEngine:
     model: DynamicsModel
     gp: MultiGP
     policy: PolicyBase
+    # the 4PMS measurement chain inside every step; None: the policy sees
+    # the true state
+    sensors: Optional[PMSSensors] = None
     # per-particle state-cotangent norm cap applied once per step; None disables
     bptt_clip: Optional[float] = None
 
     def draw_noise(self, key, num_particles: int, horizon: int, p_dropout: float, device,
                    dtype=torch.float32) -> RolloutNoise:
         """All random numbers of one rollout, one draw per stream."""
-        state = torch.randn((horizon - 1, num_particles, self.gp.num_heads), dtype=dtype,
-                            device=device,
-                            generator=prng.generator(prng.stream(key, prng.STREAM_ROLLOUT), device))
+
+        def normals(tag, width):
+            return torch.randn((horizon - 1, num_particles, width), dtype=dtype, device=device,
+                               generator=prng.generator(prng.stream(key, tag), device))
+
         keep = None
         if p_dropout > 0:
             keep = self.policy.dropout_keep(
                 prng.stream(key, prng.STREAM_DROPOUT),
                 (horizon, num_particles, self.policy.num_basis), p_dropout, device,
             )
-        return RolloutNoise(state=state, keep=keep)
+        meas = None
+        if self.sensors is not None:
+            meas = normals(prng.STREAM_MEAS_NOISE, len(self.sensors.pos_indices))
+        return RolloutNoise(state=normals(prng.STREAM_ROLLOUT, self.gp.num_heads), keep=keep,
+                            meas=meas)
 
     def simulate(self, key, policy_params, gp_params, posterior: Posterior, s0: torch.Tensor,
                  horizon: int, p_dropout=0.0, particle_pred: bool = True,
@@ -132,6 +201,9 @@ class RolloutEngine:
             keep = None if noise.keep is None else noise.keep[t]
             return self.policy.apply(policy_params, s, t, p_dropout=p_dropout, keep=keep)
 
+        if self.sensors is not None:
+            return self._simulate_pms(policy_at, gp_params, posterior, s0, horizon,
+                                      particle_pred, noise)
         s, u = s0, policy_at(s0, 0)
         states, inputs = [s0], [u]
         for t in range(1, horizon):
@@ -143,6 +215,38 @@ class RolloutEngine:
                 s, u, mean, var, particle_pred=particle_pred, eps=noise.state[t - 1]
             )
             u = policy_at(s, t)
+            states.append(s)
+            inputs.append(u)
+        return RolloutResult(states=torch.stack(states), inputs=torch.stack(inputs))
+
+    def _simulate_pms(self, policy_at, gp_params, posterior, s0, horizon, particle_pred,
+                      noise: RolloutNoise) -> RolloutResult:
+        """The rollout with the simulated measurement chain: the policy sees
+        noisy positions and filtered finite-difference velocities, the cost
+        the true states.  ``noisy`` carries the raw measurement: noisy
+        positions, and in the velocity slots the raw differences that the
+        next filter step takes as x_{t-1}."""
+        sens = self.sensors
+        b, a = sens.coeffs(s0.dtype)
+        pos, vel = list(sens.pos_indices), list(sens.vel_indices)
+        std_pos = torch.as_tensor(sens.std_pos_noise, dtype=s0.dtype, device=s0.device)
+        # at t=0 the measurement equals the true state
+        s, u, noisy_prev, meas_vel_prev = s0, policy_at(s0, 0), s0, s0[..., vel]
+        states, inputs = [s0], [u]
+        for t in range(1, horizon):
+            if self.bptt_clip is not None:
+                s = _clip_bptt(s, self.bptt_clip)
+                noisy_prev = _clip_bptt(noisy_prev, self.bptt_clip)
+                meas_vel_prev = _clip_bptt(meas_vel_prev, self.bptt_clip)
+            mean, var = self.gp.predict(gp_params, posterior, self.model.gp_inputs(s, u))
+            s, _, _ = self.model.sample_next_state(
+                s, u, mean, var, particle_pred=particle_pred, eps=noise.state[t - 1]
+            )
+            meas, noisy_prev, meas_vel_prev = filters.pms_measure(
+                b, a, s, s[..., pos] + std_pos * noise.meas[t - 1], noisy_prev, meas_vel_prev,
+                pos, vel, sens.dt,
+            )
+            u = policy_at(meas, t)
             states.append(s)
             inputs.append(u)
         return RolloutResult(states=torch.stack(states), inputs=torch.stack(inputs))

@@ -1,20 +1,28 @@
 """The "real system" protocol: plant rollouts that produce trial data.
 
 A plant exposes ``rollout(key, s0, policy, policy_params, T, dt, device)
--> TrialData``; the policy acts on *measured* states.  :class:`ODEPlant`
-adds Gaussian measurement noise on all dims (``mcpilco_tpu/envs/plants.py``).
+-> TrialData``; the policy acts on *measured* states
+(``mcpilco_tpu/envs/plants.py``):
+
+- :class:`ODEPlant` adds Gaussian measurement noise on all dims;
+- :class:`PMSODEPlant` measures positions with noise and estimates
+  velocities by causal differences and an online 1st-order Butterworth.
+
 The plant runs on ``device`` as a Python loop over control steps; it is not
-hot (one trial per policy optimization).
+hot (one trial per policy optimization).  :func:`offline_velocity_estimation`
+is the host-side data prep of 4PMS model learning.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Tuple
+import math
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..models import filters
 from ..utils import prng
 from . import ode as ode_mod
 
@@ -75,3 +83,124 @@ class ODEPlant:
         m = torch.stack(measured).cpu().numpy()
         return TrialData(measured=m, inputs=torch.stack(inputs).cpu().numpy(),
                          true=torch.stack(states).cpu().numpy(), noisy=m)
+
+
+@dataclasses.dataclass(frozen=True)
+class PMSODEPlant(ODEPlant):
+    """Partially-measurable ODE plant: the policy sees noisy positions and
+    online-filtered finite-difference velocities."""
+
+    pos_indices: Tuple[int, ...] = ()
+    vel_indices: Tuple[int, ...] = ()
+    fc: float = 0.5  # online butter(1, fc) cutoff
+
+    def __post_init__(self):
+        super().__post_init__()
+        for f in ("pos_indices", "vel_indices"):
+            object.__setattr__(self, f, tuple(int(i) for i in np.asarray(getattr(self, f))))
+
+    @torch.no_grad()
+    def rollout(self, key, s0, policy, policy_params, T: float, dt: float, device="cpu",
+                eps: Optional[torch.Tensor] = None) -> TrialData:
+        """Simulate ``T`` seconds at sampling time ``dt`` (N = T/dt + 1
+        samples).  ``eps`` [N-1, ds] replaces the standard-normal draws of
+        samples 1..N-1; only the position dims of each draw are used."""
+        num_steps = int(round(T / dt))
+        b, a = filters.butter1(self.fc)
+        pos, vel = list(self.pos_indices), list(self.vel_indices)
+        s = torch.as_tensor(np.asarray(s0), dtype=torch.float32, device=device)
+        noise_std = torch.as_tensor(self.noise_std, dtype=s.dtype, device=device)
+        k_pol = prng.stream(key, prng.STREAM_EXPLORATION)
+        if eps is None:
+            eps = torch.randn(
+                (num_steps,) + tuple(s.shape), dtype=s.dtype, device=device,
+                generator=prng.generator(prng.stream(key, prng.STREAM_MEAS_NOISE), device),
+            )
+        meas_noise = noise_std * eps.to(device=device, dtype=s.dtype)
+        # at t=0 the raw and the filtered measurement both equal s0
+        noisy_prev, meas_prev = s, s
+        states, noisy_all, measured, inputs = [s], [s], [s], []
+        for i in range(num_steps + 1):
+            u = policy.apply(policy_params, meas_prev[None, :], i, key=prng.fold(k_pol, i))[0]
+            inputs.append(u)
+            if i == num_steps:
+                break
+            s = ode_mod.integrate(self.ode, s, u, dt, self.substeps)
+            meas_prev, noisy_prev, _ = filters.pms_measure(
+                b, a, s, s[pos] + meas_noise[i][pos], noisy_prev, meas_prev[vel], pos, vel, dt
+            )
+            states.append(s)
+            noisy_all.append(noisy_prev)
+            measured.append(meas_prev)
+        host = lambda xs: torch.stack(xs).cpu().numpy()
+        return TrialData(measured=host(measured), inputs=host(inputs), true=host(states),
+                         noisy=host(noisy_all))
+
+
+def _savgol_fit_matrix(n: int, window: int, polyorder: int, deriv: int,
+                       delta: float) -> np.ndarray:
+    """[n, n] matrix A such that (A @ y) is the Savitzky-Golay estimate of
+    the ``deriv``-th derivative of y sampled at spacing ``delta``: centered
+    least-squares fits inside, and at the first/last ``window//2`` rows the
+    polynomial of the first/last full window (scipy's ``mode='interp'``)."""
+    if window % 2 != 1 or window > n:
+        raise ValueError(f"savgol window must be odd and <= n, got {window} (n={n})")
+    if polyorder >= window:
+        raise ValueError("savgol polyorder must be < window")
+    half = window // 2
+    fact = np.array([math.factorial(j) / math.factorial(j - deriv)
+                     if j >= deriv else 0.0 for j in range(polyorder + 1)])
+
+    def eval_row(offsets, x):
+        V = np.vander(np.asarray(offsets, np.float64), polyorder + 1, increasing=True)
+        powers = np.array([x ** (j - deriv) if j >= deriv else 0.0
+                           for j in range(polyorder + 1)])
+        return (fact * powers) @ np.linalg.pinv(V)
+
+    A = np.zeros((n, n))
+    center = eval_row(np.arange(-half, half + 1), 0.0)
+    for i in range(half, n - half):
+        A[i, i - half:i + half + 1] = center
+    for i in range(half):
+        A[i, :window] = eval_row(np.arange(window), float(i))
+        j = n - 1 - i
+        A[j, n - window:] = eval_row(np.arange(window), float(window - 1 - i))
+    return A / delta**deriv
+
+
+def _savgol_pos_vel(n: int, dt: float, window: int, polyorder: int):
+    return (_savgol_fit_matrix(n, window, polyorder, 0, dt),
+            _savgol_fit_matrix(n, window, polyorder, 1, dt))
+
+
+def offline_velocity_estimation(noisy: np.ndarray, inputs: np.ndarray, dt: float, pos_indices,
+                                vel_indices, filt_order: int = 2, filt_cutoff: float = 0.5,
+                                method: str = "butter_cd", savgol_window: int = 7,
+                                savgol_polyorder: int = 5):
+    """Offline state estimation for model training, on the host: positions
+    smoothed and velocities estimated from the noisy positions, then the
+    first and last samples trimmed.  Returns (states [N-2, ds], inputs[1:-1]).
+
+    ``method='butter_cd'``: zero-phase Butterworth (float32 ``filtfilt``) on
+    positions, central-difference velocities of those (float32 arithmetic,
+    as numpy does it in the JAX host path), stored in a float64 array.
+    ``method='savgol'``: float64 Savitzky-Golay fit matrices (deriv 0 for
+    positions, 1 for velocities).
+    """
+    n = noisy.shape[0]
+    out = np.zeros((n - 2, noisy.shape[1]))
+    if method == "savgol":
+        smooth, diff = _savgol_pos_vel(n, dt, savgol_window, savgol_polyorder)
+        for p_i, v_i in zip(pos_indices, vel_indices):
+            out[:, p_i] = (smooth @ noisy[:, p_i])[1:-1]
+            out[:, v_i] = (diff @ noisy[:, p_i])[1:-1]
+        return out, inputs[1:-1, :]
+    if method != "butter_cd":
+        raise ValueError(f"unknown offline filter method {method!r}")
+    b, a = filters.butter2(filt_cutoff) if filt_order == 2 else filters.butter1(filt_cutoff)
+    for p_i, v_i in zip(pos_indices, vel_indices):
+        x = torch.as_tensor(np.asarray(noisy[:, p_i], np.float32))
+        pos = filters.filtfilt(b, a, x).numpy()
+        out[:, p_i] = pos[1:-1]
+        out[:, v_i] = (pos[2:] - pos[:-2]) / (2.0 * dt)
+    return out, inputs[1:-1, :]

@@ -69,6 +69,46 @@ class RandomExploration(PolicyBase):
 
 
 @dataclasses.dataclass(frozen=True)
+class SumOfSinusoids(PolicyBase):
+    """Sum of ``num_sin`` sinusoids with random amplitudes, frequencies
+    (rad/s) and phases, drawn once by ``init_params`` and then frozen.  ``t``
+    is the step index; ``dt`` converts it to seconds."""
+
+    state_dim: int
+    input_dim: int
+    num_sin: int
+    omega_min: float
+    omega_max: float
+    amplitude_min: float
+    amplitude_max: float
+    squash_output: bool = False
+    u_max: float = 1.0
+    dt: float = 1.0
+
+    def init_params(self, key, device="cpu", dtype=torch.float32) -> dict:
+        gen = prng.generator(key, device)
+        shape = (self.num_sin, self.input_dim)
+
+        def uniform():
+            return torch.rand(shape, generator=gen, dtype=dtype, device=device)
+
+        def sign():
+            return torch.where(uniform() < 0.5, 1.0, -1.0).to(dtype)
+
+        amp = self.amplitude_min + (self.amplitude_max - self.amplitude_min) * uniform()
+        omega = sign() * (self.omega_min + (self.omega_max - self.omega_min) * uniform())
+        phase = sign() * np.pi * (uniform() - 0.5)
+        return {"amplitudes": amp, "omega": omega, "phases": phase}
+
+    def apply(self, params, states, t, key=None, p_dropout=0.0, keep=None):
+        tt = torch.as_tensor(t, dtype=states.dtype) * self.dt
+        u = torch.sum(params["amplitudes"] * torch.sin(params["omega"] * tt + params["phases"]),
+                      dim=0)
+        u = u.expand(states.shape[:-1] + (self.input_dim,))
+        return squash(u, self.u_max) if self.squash_output else u
+
+
+@dataclasses.dataclass(frozen=True)
 class SumOfGaussians(PolicyBase):
     """The trainable controller: squashed RBF network with feature dropout,
     u = squash(W @ dropout(exp(-||(s/scale - c)/l||^2)))."""

@@ -3,8 +3,10 @@
 :func:`build` returns a ready :class:`~..control.mc_pilco.MCPilco` and the
 ``reinforce`` kwargs, with the config values of
 ``mcpilco_tpu/scenarios/cartpole.py`` (SE+P(2) kernel, SOD relative 0.5,
-400 particles, 5 trials x 3 s at 20 Hz, u_max 10).  The state is
-[x, x_dot, theta, theta_dot]; the swing-up target is |theta| = pi, x = 0.
+400 particles, 5 trials x 3 s at 20 Hz, u_max 10).  ``multi_init=True`` is
+the multi-init variant: a bimodal initial distribution at x = +-1 m and
+wider policy centers.  The state is [x, x_dot, theta, theta_dot]; the
+swing-up target is |theta| = pi, x = 0.
 """
 
 from __future__ import annotations
@@ -77,28 +79,36 @@ INPUT_DIM = 1
 GP_INPUT_DIM = 6  # [x, xd, thd, sin(th), cos(th), u]
 
 
-def policy_init(cfg: CartpoleConfig, policy, key, device):
-    """Per-seed policy init: random centers over the state range and random
-    weights.  ``key`` is the scenario root key."""
+def random_policy_params(policy, key, device, num_basis: int, u_max: float,
+                         center_scale=(math.pi,) * 3):
+    """Random centers over the state range and random weights: centers of
+    [x, xd, thd] uniform in +-``center_scale``, of (cos th, sin th) from a
+    uniform angle.  ``key`` is the scenario root key."""
     kc = prng.fold(prng.stream(key, prng.STREAM_POLICY_INIT), 0xC0)
     gen = prng.generator(kc, device)
     opts = dict(dtype=torch.float32, device=device)
-    angle_centers = math.pi * 2 * (torch.rand((cfg.num_basis, 1), generator=gen, **opts) - 0.5)
-    not_angle_centers = math.pi * 2 * (torch.rand((cfg.num_basis, 3), generator=gen, **opts) - 0.5)
+    angle_centers = math.pi * 2 * (torch.rand((num_basis, 1), generator=gen, **opts) - 0.5)
+    not_angle_centers = torch.as_tensor(center_scale, **opts) * 2 * (
+        torch.rand((num_basis, 3), generator=gen, **opts) - 0.5)
     centers = torch.cat(
         [not_angle_centers, torch.cos(angle_centers), torch.sin(angle_centers)], dim=1
     )
-    weight = cfg.u_max * (torch.rand((INPUT_DIM, cfg.num_basis), generator=gen, **opts) - 0.5)
+    weight = u_max * (torch.rand((INPUT_DIM, num_basis), generator=gen, **opts) - 0.5)
     return policy.init_params(
         kc, lengthscales=torch.ones(STATE_DIM + 1), centers=centers, weight=weight,
         device=device,
     )
 
 
+def policy_init(cfg: CartpoleConfig, policy, key, device):
+    """Per-seed policy init; multi-init widens the [x, xd, thd] centers to
+    [+-2, +-2, +-2 pi]."""
+    scale = (2.0, 2.0, 2.0 * math.pi) if cfg.multi_init else (math.pi,) * 3
+    return random_policy_params(policy, key, device, cfg.num_basis, cfg.u_max, scale)
+
+
 def build(cfg: CartpoleConfig, device) -> tuple:
     """Returns (MCPilco, reinforce_kwargs) with every tensor on ``device``."""
-    if cfg.multi_init:
-        raise NotImplementedError("the multi-init cart-pole variant is not ported yet")
     disable_tf32()
     device = torch.device(device)
     key = prng.root_key(cfg.seed)
@@ -136,7 +146,14 @@ def build(cfg: CartpoleConfig, device) -> tuple:
         target_state=(np.pi, 0.0), lengthscales=(3.0, 1.0), angle_index=2, pos_index=0
     )
     plant = ODEPlant(ode_name="cartpole", noise_std=(cfg.std_noise,) * STATE_DIM)
-    init_dist = InitialStateDistribution(kind="gaussian", mean=np.zeros(4), var=1e-4 * np.ones(4))
+    if cfg.multi_init:
+        init_dist = InitialStateDistribution(
+            kind="multi_gauss", mean=[[1.0, 0.0, 0.0, 0.0], [-1.0, 0.0, 0.0, 0.0]],
+            var=[[1e-4] * 4] * 2,
+        )
+    else:
+        init_dist = InitialStateDistribution(kind="gaussian", mean=np.zeros(4),
+                                             var=1e-4 * np.ones(4))
 
     engine = RolloutEngine(model=model, gp=gp, policy=policy)
     optimizer = PolicyOptimizer(
