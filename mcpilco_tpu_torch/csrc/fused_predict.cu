@@ -1,40 +1,76 @@
 // Fused multi-head GP posterior prediction for Hopper (sm_90a), fp32 FFMA.
 //
-// K1 fp_forward replaces the TPU kernel fused_gram_contract
+// K1 k1_forward replaces the TPU kernel fused_gram_contract
 //    (mcpilco_tpu/ops/fused_predict.py, body _make_body).  For each head g
-//    and particle p it forms the cross-gram row
+//    and particle p it forms the masked cross-gram row
 //        k = lam * exp(-sum_d w_d (x*_d - X_d)^2)
 //            [+ (x* p1w) X^T + p1off + ((x* p2a) X^T) * ((x* p2b) X^T)]
-//    masks it, and returns kalpha = k . alpha and quad = sum_n (k F)_n^2.
-// K2 fp_backward_xstar replaces fused_gram_contract_bwd_xstar (body
+//    and returns kalpha = k . alpha and, per tile of F's columns, the
+//    partial sums of quad = sum_n (k F)_n^2.  When x* needs a gradient it
+//    also writes kF [G, P, M], the residual K2 consumes.
+// K2 k2_backward_xstar replaces fused_gram_contract_bwd_xstar (body
 //    _make_bwd_body): dL/dx* from the cotangents g1, g2 of (kalpha, quad).
-//    It recomputes k, forms kF and kF F^T, then
-//        kbar = (g1 alpha + 2 g2 kF F^T) * mask,  dbar = -kbar * k_se
-//    and accumulates the chain rule of the SE distance and the polynomial
-//    terms.  It writes per-head partials dx*[G, P, D]; the caller sums the
-//    heads, so the result is deterministic and uses no atomics.
+//    It forms R = kF F^T from K1's kF and fuses the chain rule
+//        kbar = (g1 alpha + 2 g2 R) * mask,  dbar = -kbar * k_se
+//    into the GEMM's epilogue.  The TPU kernel recomputed kF to spare VMEM;
+//    on this card storing it (1.4 MB a call at M=448) halves K2's FLOPs.
 //
-// What bounds them on the card: at the flagship shapes (G=2, P=400,
-// M<=384, D=6) K1 is ~0.24 GFLOP and K2 ~0.47 GFLOP per call, a few
-// microseconds of the card's fp32 rate, while F (576 KB per head) stays
-// in the 50 MB L2.  Both are latency- and launch-bound, not bandwidth-
-// bound.  The design is the simple correct one: one block per (16-particle
-// tile, head); the k tile and X live in shared memory, F streams from L2
-// column by column (K1, and K2's kF pass) or through a padded shared tile
-// (K2's kF F^T pass, which reads F by rows).  With 25 tiles x 2 heads only
-// 50 of 132 SMs get a block at P=400; wgmma, TMA and more blocks are later
-// work.  Every contraction is plain fp32 FMA: TF32 and bf16 splits break
-// the posterior algebra's cancellation (RESULTS.md, "Pallas fused-predict
-// A/B").
+// What bounds them: each is one [P, M] x [M, M] fp32 contraction per head,
+// 2 G P M^2 = 0.24-0.32 GFLOP at P=400, M=384-448, with F (0.6-0.8 MB per
+// head) resident in the 50 MB L2: a few microseconds of the card's 67
+// TFLOP/s fp32 rate if the SMs are fed.  The design is a tiled SGEMM:
+//  - a grid of (column tile, particle tile, head) blocks, 300-364 blocks at
+//    P=400, M=384-448, so that all 132 SMs have work;
+//  - the reduction dimension is walked in chunks of BK; F's (and in K2
+//    kF's) chunks arrive by cp.async through a STAGES-deep shared-memory
+//    ring, so the next chunks' loads overlap this chunk's FMAs.  Ragged
+//    edges are zero-filled by cp.async's source-size operand; rows that are
+//    not 16-byte aligned (M % 4 != 0) are copied 4 bytes at a time;
+//  - each thread accumulates a 4 x 4 register micro-tile over half of
+//    every chunk: two groups of warps per block share the tile (sliced K)
+//    and sum their partials in a fixed order at the end, which doubles the
+//    warps per SM that hide latency;
+//  - K1 generates its A operand, the k chunk, into shared memory while the
+//    next chunks' copies are in flight;
+//  - K2's epilogue recomputes k_se, a2, b2 per (particle, point) pair and
+//    reduces over the tile's points through shared memory.
+// Partial sums over column tiles (quad) and point tiles (dx*) are written
+// per tile and summed by the caller in a fixed order: the result is
+// deterministic and no atomics are used.  Every contraction is plain fp32
+// FMA: TF32 and bf16 splits break the posterior algebra's cancellation
+// (RESULTS.md, "Pallas fused-predict A/B").
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TP = 16;        // particles per block
-constexpr int THREADS = 128;  // 4 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int TILE_N = 32;    // F columns per shared tile in K2's second pass
+constexpr int STAGES = 3;      // depth of the cp.async ring
+constexpr int TM = 4, TN = 4;  // register micro-tile of one thread
+constexpr int MAX_D = 8;       // input dims (padded to 6 or 8 in registers)
+
+// K1: BP particles x BN columns of F per block, BK training points a chunk.
+// SLICES groups of threads each cover the whole tile and take a slice of
+// every chunk (sliced K): at P=400 the tiles alone give ~4.5 warps per SM,
+// too few to hide shared-memory and L2 latency.
+constexpr int K1_BP = 16, K1_BN = 64, K1_BK = 32, K1_SLICES = 2;
+constexpr int K1_TILE_T = (K1_BP / TM) * (K1_BN / TN);
+constexpr int K1_THREADS = K1_SLICES * K1_TILE_T;
+// K2: BP particles x BM training points per block, BK columns of F a chunk,
+// sliced the same way; both operands are stored [row][chunk column] with a
+// 16-byte-aligned pitch whose rows fall in distinct bank groups for the
+// float4 reads.
+constexpr int K2_BP = 32, K2_BM = 32, K2_BK = 32, K2_SLICES = 2;
+constexpr int K2_TILE_T = (K2_BP / TM) * (K2_BM / TN);
+constexpr int K2_THREADS = K2_SLICES * K2_TILE_T;
+constexpr int K2_PITCH = K2_BK + 4;
+
+static_assert(TM == 4 && TN == 4, "the inner loops read float4 operands");
+static_assert(K1_THREADS % K1_BP == 0 && (K1_BK * K1_BP) % K1_THREADS == 0,
+              "K1 generates whole chunk rows per thread");
+static_assert(K1_BN / TN <= 32 && 32 % (K1_BN / TN) == 0, "quad is reduced within a warp");
+static_assert(TM % K1_SLICES == 0 && TM % K2_SLICES == 0 && K1_TILE_T % 32 == 0 &&
+                  K2_TILE_T % 32 == 0 && K1_BK % K1_SLICES == 0 && K2_BK % (4 * K2_SLICES) == 0,
+              "a slice is whole warps, whole micro-tile rows and whole chunk columns");
 
 struct Args {
   const float* se_w;    // [G, D]
@@ -48,296 +84,480 @@ struct Args {
   const float* F;       // [G, M, M]
   const float* mask;    // [G, M]
   int G, P, M, D;
+  bool vec;  // M % 4 == 0 and F (and kF) 16-byte aligned: 16-byte copies
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Stage X and this block's particle rows in shared memory, then fill the
-// transposed, masked k tile kT[m * TP + i].  Rows past P are zero and never
-// written out.
-template <bool POLY>
-__device__ void stage_k_tile(const Args& a, int g, int p0, float* kT, float* X, float* xs) {
-  const int M = a.M, D = a.D;
-  for (int e = threadIdx.x; e < M * D; e += THREADS) X[e] = a.xt[e];
-  for (int e = threadIdx.x; e < TP * D; e += THREADS) {
-    const int r = e / D, row = p0 + r;
-    xs[e] = row < a.P ? a.xs[(size_t)row * D + (e - r * D)] : 0.f;
-  }
-  __syncthreads();
-  const float* w = a.se_w + g * D;
-  const float lam = a.se_lam[g];
-  const float* p1 = a.poly1 + g * (D + 1);
-  const float* pa = a.poly2a + g * D;
-  const float* pb = a.poly2b + g * D;
-  const float* msk = a.mask + (size_t)g * M;
-  for (int e = threadIdx.x; e < M * TP; e += THREADS) {
-    const int m = e / TP, i = e - m * TP;
-    const float* xi = xs + i * D;
-    const float* xm = X + m * D;
-    float d = 0.f;
-    for (int c = 0; c < D; ++c) {
-      const float df = xi[c] - xm[c];
-      d += w[c] * df * df;
-    }
-    float k = lam * expf(-d);
-    if (POLY) {
-      float lin = p1[D], a2 = 0.f, b2 = 0.f;
-      for (int c = 0; c < D; ++c) {
-        const float xx = xi[c] * xm[c];
-        lin += p1[c] * xx;
-        a2 += pa[c] * xx;
-        b2 += pb[c] * xx;
+// Asynchronous global -> shared copies; a false `full` zero-fills the
+// destination and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start copying the ROWS x COLS block at (r0, c0) of a row-major nr x nc
+// matrix (ld floats per row) into dst[r * PITCH + c]; what lies outside the
+// matrix is zero-filled.  With `vec` every row is 16-byte aligned and
+// nc % 4 == 0, so a 4-float vector is either all inside or all outside.
+template <int ROWS, int COLS, int PITCH, int THREADS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, int ld, int nr, int nc,
+                                          int r0, int c0, bool vec) {
+  if (vec) {
+    constexpr int Q = COLS / 4, N = ROWS * Q;
+#pragma unroll
+    for (int j = 0; j < (N + THREADS - 1) / THREADS; ++j) {
+      const int e = threadIdx.x + j * THREADS;
+      if (N % THREADS == 0 || e < N) {
+        const int r = e / Q, c = (e - r * Q) * 4;
+        const bool ok = r0 + r < nr && c0 + c < nc;
+        cp_async16(dst + r * PITCH + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
       }
-      k += lin + a2 * b2;
     }
-    kT[e] = k * msk[m];
-  }
-  __syncthreads();
-}
-
-// acc[i] = sum_m kT[m][i] * F[m][n] for one column n of F (coalesced over n
-// across the block's threads; the kT row is a shared-memory broadcast).
-__device__ __forceinline__ void kf_column(const float* kT, const float* Fg, int M, int n,
-                                          float acc[TP]) {
-#pragma unroll
-  for (int i = 0; i < TP; ++i) acc[i] = 0.f;
+  } else {
+    constexpr int N = ROWS * COLS;
 #pragma unroll 4
-  for (int m = 0; m < M; ++m) {
-    const float f = __ldg(Fg + (size_t)m * M + n);
-    const float4* k4 = reinterpret_cast<const float4*>(kT + m * TP);
-#pragma unroll
-    for (int q = 0; q < TP / 4; ++q) {
-      const float4 v = k4[q];
-      acc[4 * q + 0] += v.x * f;
-      acc[4 * q + 1] += v.y * f;
-      acc[4 * q + 2] += v.z * f;
-      acc[4 * q + 3] += v.w * f;
+    for (int e = threadIdx.x; e < N; e += THREADS) {
+      const int r = e / COLS, c = e - r * COLS;
+      const bool ok = r0 + r < nr && c0 + c < nc;
+      cp_async4(dst + r * PITCH + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
     }
   }
 }
 
-template <bool POLY>
-__global__ void __launch_bounds__(THREADS)
-fwd_kernel(Args a, float* __restrict__ kalpha, float* __restrict__ quad) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int M = a.M, D = a.D, g = blockIdx.y, p0 = blockIdx.x * TP;
-  float* kT = smem;          // [M, TP]
-  float* X = kT + M * TP;    // [M, D]
-  float* xs = X + M * D;     // [TP, D]
-  float* red = xs + TP * D;  // [WARPS, TP]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  stage_k_tile<POLY>(a, g, p0, kT, X, xs);
-
-  const float* al = a.alpha + (size_t)g * M;
-  for (int i = warp; i < TP; i += WARPS) {
-    float s = 0.f;
-    for (int m = lane; m < M; m += 32) s += kT[m * TP + i] * al[m];
-    s = warp_sum(s);
-    if (lane == 0 && p0 + i < a.P) kalpha[(size_t)g * a.P + p0 + i] = s;
-  }
-
-  const float* Fg = a.F + (size_t)g * M * M;
-  float q[TP];
+// Sum the SLICES partial micro-tiles of one tile position t: slice s keeps
+// rows [s * TM / SLICES, +TM / SLICES) and adds the other slices' partials
+// of them in slice order (deterministic).  xch: SLICES * TM * TN * TILE_T
+// floats of shared memory that no thread reads any more.
+template <int SLICES, int TILE_T>
+__device__ __forceinline__ void gather_slices(float (&acc)[TM][TN], float* xch, int slice, int t) {
+  if (SLICES == 1) return;
+  constexpr int RPS = TM / SLICES;
 #pragma unroll
-  for (int i = 0; i < TP; ++i) q[i] = 0.f;
-  for (int n = threadIdx.x; n < M; n += THREADS) {
-    float acc[TP];
-    kf_column(kT, Fg, M, n, acc);
+  for (int r = 0; r < TM; ++r)
+    if (r / RPS != slice)
 #pragma unroll
-    for (int i = 0; i < TP; ++i) q[i] += acc[i] * acc[i];
-  }
-#pragma unroll
-  for (int i = 0; i < TP; ++i) {
-    const float s = warp_sum(q[i]);
-    if (lane == 0) red[warp * TP + i] = s;
-  }
+      for (int j = 0; j < TN; ++j) xch[((slice * TM + r) * TN + j) * TILE_T + t] = acc[r][j];
   __syncthreads();
-  if (threadIdx.x < TP && p0 + threadIdx.x < a.P) {
-    float s = 0.f;
-    for (int w = 0; w < WARPS; ++w) s += red[w * TP + threadIdx.x];
-    quad[(size_t)g * a.P + p0 + threadIdx.x] = s;
-  }
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+    if (r / RPS == slice)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        float v = 0.f;
+        for (int q = 0; q < SLICES; ++q)
+          v += q == slice ? acc[r][j] : xch[((q * TM + r) * TN + j) * TILE_T + t];
+        acc[r][j] = v;
+      }
 }
 
-template <bool POLY>
-__global__ void __launch_bounds__(THREADS)
-bwd_kernel(Args a, const float* __restrict__ g1, const float* __restrict__ g2,
-           float* __restrict__ dxp) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int M = a.M, D = a.D, g = blockIdx.y, p0 = blockIdx.x * TP;
-  float* kT = smem;                         // [M, TP]  masked k
-  float* kFT = kT + M * TP;                 // [M, TP]  (kF)^T
-  float* X = kFT + M * TP;                  // [M, D]
-  float* xs = X + M * D;                    // [TP, D]
-  float* tile = xs + TP * D;                // [THREADS, TILE_N + 1]
-  float* part = tile + THREADS * (TILE_N + 1);  // [WARPS, TP, D]
-  float* g1s = part + WARPS * TP * D;       // [TP]
-  float* g2s = g1s + TP;                    // [TP]
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+// K1.  Block (nt, pt, g): particles [pt*BP, +BP) x F's columns [nt*BN, +BN).
+// Thread (slice, ty, tx) accumulates rows ty*4..+4 and columns tx*4..+4 of
+// kF's tile over its slice of each chunk.
+template <int DP, bool POLY>
+__global__ void __launch_bounds__(K1_THREADS)
+k1_forward(Args a, float* __restrict__ kalpha, float* __restrict__ qpart, float* __restrict__ kf) {
+  constexpr int BP = K1_BP, BN = K1_BN, BK = K1_BK, T = K1_THREADS, TX = BN / TN;
+  constexpr int SLICES = K1_SLICES, KS = BK / SLICES, RPS = TM / SLICES;
+  static_assert(SLICES * TM * TN * K1_TILE_T <= STAGES * BK * BN, "the slices' sum reuses the ring");
+  __shared__ __align__(16) float Fs[STAGES][BK * BN];  // F chunk [kk][n]
+  __shared__ float Xs[STAGES][BK * DP];                // X chunk [kk][c], dims >= D zero
+  __shared__ float Ms[STAGES][BK], As[STAGES][BK];     // mask, alpha chunks
+  __shared__ __align__(16) float ks[BK * BP];          // masked k chunk, transposed [kk][i]
+  __shared__ float red[T];
 
-  for (int e = tid; e < TP; e += THREADS) {
-    const bool ok = p0 + e < a.P;
-    g1s[e] = ok ? g1[(size_t)g * a.P + p0 + e] : 0.f;
-    g2s[e] = ok ? g2[(size_t)g * a.P + p0 + e] : 0.f;
-  }
-  for (int e = tid; e < WARPS * TP * D; e += THREADS) part[e] = 0.f;
-  stage_k_tile<POLY>(a, g, p0, kT, X, xs);
-
-  // pass 1: kF^T into shared memory
+  const int M = a.M, D = a.D, P = a.P, g = blockIdx.z;
+  const int nt = blockIdx.x, n0 = nt * BN, p0 = blockIdx.y * BP;
+  const int tid = threadIdx.x, slice = tid / K1_TILE_T, t = tid % K1_TILE_T;
+  const int tx = t % TX, ty = t / TX;
   const float* Fg = a.F + (size_t)g * M * M;
-  for (int n = tid; n < M; n += THREADS) {
-    float acc[TP];
-    kf_column(kT, Fg, M, n, acc);
-    float4* dst = reinterpret_cast<float4*>(kFT + n * TP);
-#pragma unroll
-    for (int q = 0; q < TP / 4; ++q)
-      dst[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
-  }
-  __syncthreads();
+  const float* mg = a.mask + (size_t)g * M;
+  const float* ag = a.alpha + (size_t)g * M;
 
-  const float* w = a.se_w + g * D;
+  for (int e = tid; e < STAGES * BK * DP; e += T)
+    if (e % DP >= D) (&Xs[0][0])[e] = 0.f;  // never copied; visible after the first barrier
+
+  auto load_stage = [&](int s, int chunk) {
+    const int m0 = chunk * BK;
+    load_tile<BK, BN, BN, T>(Fs[s], Fg, M, M, M, m0, n0, a.vec);
+    for (int e = tid; e < BK * D; e += T) {
+      const int kk = e / D;
+      const bool ok = m0 + kk < M;
+      cp_async4(&Xs[s][kk * DP + e - kk * D], ok ? a.xt + (size_t)m0 * D + e : a.xt, ok);
+    }
+    for (int e = tid; e < 2 * BK; e += T) {
+      const int kk = e % BK;
+      const bool ok = m0 + kk < M;
+      const float* src = (e < BK ? mg : ag) + m0 + kk;
+      cp_async4(e < BK ? &Ms[s][kk] : &As[s][kk], ok ? src : mg, ok);
+    }
+  };
+
+  // the particle row this thread generates k for, and its per-head factors
+  const int gi = tid % BP;
+  const bool row_ok = p0 + gi < P;
+  float xi[DP], w[DP], u1[DP], ua[DP], ub[DP];
+#pragma unroll
+  for (int c = 0; c < DP; ++c) {
+    const bool in = c < D;
+    xi[c] = in && row_ok ? a.xs[(size_t)(p0 + gi) * D + c] : 0.f;
+    w[c] = in ? a.se_w[g * D + c] : 0.f;
+    if (POLY) {
+      u1[c] = in ? a.poly1[g * (D + 1) + c] * xi[c] : 0.f;
+      ua[c] = in ? a.poly2a[g * D + c] * xi[c] : 0.f;
+      ub[c] = in ? a.poly2b[g * D + c] * xi[c] : 0.f;
+    }
+  }
   const float lam = a.se_lam[g];
-  const float* p1 = a.poly1 + g * (D + 1);
-  const float* pa = a.poly2a + g * D;
-  const float* pb = a.poly2b + g * D;
-  // pass 2: each thread owns one training point m of the block of THREADS
-  // rows; acc[i] = (kF F^T)[i][m], F read by rows through the shared tile
-  for (int m0 = 0; m0 < M; m0 += THREADS) {
-    const int m = m0 + tid;
-    const bool mv = m < M;
-    float acc[TP];
-#pragma unroll
-    for (int i = 0; i < TP; ++i) acc[i] = 0.f;
-    for (int n0 = 0; n0 < M; n0 += TILE_N) {
-      for (int e = tid; e < THREADS * TILE_N; e += THREADS) {
-        const int r = e / TILE_N, c = e - r * TILE_N;
-        const int mm = m0 + r, nn = n0 + c;
-        tile[r * (TILE_N + 1) + c] = (mm < M && nn < M) ? Fg[(size_t)mm * M + nn] : 0.f;
-      }
-      __syncthreads();
-      const int ncols = min(TILE_N, M - n0);
-      for (int c = 0; c < ncols; ++c) {
-        const float f = tile[tid * (TILE_N + 1) + c];
-        const float4* k4 = reinterpret_cast<const float4*>(kFT + (n0 + c) * TP);
-#pragma unroll
-        for (int q = 0; q < TP / 4; ++q) {
-          const float4 v = k4[q];
-          acc[4 * q + 0] += v.x * f;
-          acc[4 * q + 1] += v.y * f;
-          acc[4 * q + 2] += v.z * f;
-          acc[4 * q + 3] += v.w * f;
-        }
-      }
-      __syncthreads();
-    }
+  const float p1off = POLY ? a.poly1[g * (D + 1) + D] : 0.f;
+  float ka = 0.f;
 
-    // chain rule for the (i, m) pairs of this thread; invalid m has mask 0
-    const float al = mv ? a.alpha[(size_t)g * M + m] : 0.f;
-    const float mk = mv ? a.mask[(size_t)g * M + m] : 0.f;
-    const float* xm = X + (mv ? m : 0) * D;
-    for (int i = 0; i < TP; ++i) {
-      const float kbar = (g1s[i] * al + 2.f * g2s[i] * acc[i]) * mk;
-      const float* xi = xs + i * D;
-      float d = 0.f, a2 = 0.f, b2 = 0.f;
-      for (int c = 0; c < D; ++c) {
+  auto gen = [&](int s) {
+#pragma unroll
+    for (int j = 0; j < BK * BP / T; ++j) {
+      const int kk = tid / BP + j * (T / BP);
+      const float* xm = &Xs[s][kk * DP];
+      float d = 0.f;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) {
         const float df = xi[c] - xm[c];
-        d += w[c] * df * df;
+        d = fmaf(w[c] * df, df, d);
+      }
+      float k = lam * expf(-d);
+      if (POLY) {
+        float lin = p1off, a2 = 0.f, b2 = 0.f;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) {
+          lin = fmaf(u1[c], xm[c], lin);
+          a2 = fmaf(ua[c], xm[c], a2);
+          b2 = fmaf(ub[c], xm[c], b2);
+        }
+        k += lin + a2 * b2;
+      }
+      k = row_ok ? k * Ms[s][kk] : 0.f;
+      ks[kk * BP + gi] = k;
+      ka = fmaf(k, As[s][kk], ka);
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) acc[r][c] = 0.f;
+
+  const int nk = (M + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < nk; ++ch) {
+    const int s = ch % STAGES;
+    cp_async_wait<STAGES - 2>();  // chunk ch has landed (this thread's copies)
+    __syncthreads();              // ... everyone's; and chunk ch-1 is consumed
+    if (ch + STAGES - 1 < nk) load_stage((ch + STAGES - 1) % STAGES, ch + STAGES - 1);
+    cp_async_commit();
+    gen(s);
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < KS; ++q) {
+      const int kk = slice * KS + q;
+      const float4 av = *reinterpret_cast<const float4*>(&ks[kk * BP + ty * TM]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Fs[s][kk * BN + tx * TN]);
+      const float ar[TM] = {av.x, av.y, av.z, av.w}, br[TN] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(ar[r], br[c], acc[r][c]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free
+  gather_slices<SLICES, K1_TILE_T>(acc, &Fs[0][0], slice, t);
+
+  // kalpha: the column-tile-0 blocks sum the threads of each row in order
+  red[tid] = ka;
+  __syncthreads();
+  if (nt == 0 && tid < BP && p0 + tid < P) {
+    float s = 0.f;
+    for (int j = 0; j < T / BP; ++j) s += red[tid + j * BP];
+    kalpha[(size_t)g * P + p0 + tid] = s;
+  }
+
+  // quad: this tile's sum of squares per row, over the TX threads of a row;
+  // each slice finishes its rows
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    if (r / RPS != slice) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < TN; ++c) s = fmaf(acc[r][c], acc[r][c], s);
+#pragma unroll
+    for (int o = TX / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const int row = p0 + ty * TM + r;
+    if (tx == 0 && row < P) qpart[((size_t)g * gridDim.x + nt) * P + row] = s;
+  }
+
+  if (kf != nullptr) {
+    const int n = n0 + tx * TN;
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      const int row = p0 + ty * TM + r;
+      if (r / RPS != slice || row >= P) continue;
+      float* dst = kf + ((size_t)g * P + row) * M;
+      if (a.vec) {
+        if (n < M) *reinterpret_cast<float4*>(dst + n) = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < TN; ++c)
+          if (n + c < M) dst[n + c] = acc[r][c];
+      }
+    }
+  }
+}
+
+// K2.  Block (mt, pt, g): particles [pt*BP, +BP) x training points
+// [mt*BM, +BM); R = kF F^T over F's columns n in chunks of BK.  Thread
+// (slice, ty, tx) accumulates rows ty*4..+4 and points tx + j*TX (j < 4) of
+// R's tile over its slice of each chunk.
+template <int DP, bool POLY>
+__global__ void __launch_bounds__(K2_THREADS)
+k2_backward_xstar(Args a, const float* __restrict__ kf, const float* __restrict__ g1,
+                  const float* __restrict__ g2, float* __restrict__ dxp) {
+  constexpr int BP = K2_BP, BM = K2_BM, BK = K2_BK, T = K2_THREADS, TX = BM / TN;
+  constexpr int SLICES = K2_SLICES, KS = BK / SLICES, RPS = TM / SLICES;
+  constexpr int PITCH = K2_PITCH, STAGE = (BP + BM) * PITCH;
+  constexpr int XCH = SLICES > 1 ? SLICES * TM * TN * K2_TILE_T : 0;
+  static_assert(XCH + BP * TX * DP <= STAGES * STAGE, "the epilogue's buffers reuse the ring");
+  __shared__ __align__(16) float ring[STAGES * STAGE];  // per stage: kF [BP][PITCH], F [BM][PITCH]
+  __shared__ float xs[BP * DP], g1s[BP], g2s[BP], Xs[BM * DP], als[BM], mks[BM];
+
+  const int M = a.M, D = a.D, P = a.P, g = blockIdx.z;
+  const int mt = blockIdx.x, m0 = mt * BM, p0 = blockIdx.y * BP;
+  const int tid = threadIdx.x, slice = tid / K2_TILE_T, t = tid % K2_TILE_T;
+  const int tx = t % TX, ty = t / TX;
+  const float* Fg = a.F + (size_t)g * M * M;
+  const float* kfg = kf + (size_t)g * P * M;
+
+  auto load_stage = [&](int s, int chunk) {
+    float* st = ring + s * STAGE;
+    load_tile<BP, BK, PITCH, T>(st, kfg, M, P, M, p0, chunk * BK, a.vec);
+    load_tile<BM, BK, PITCH, T>(st + BP * PITCH, Fg, M, M, M, m0, chunk * BK, a.vec);
+  };
+  const int nk = (M + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(s, s);
+    cp_async_commit();
+  }
+
+  // the epilogue's operands, staged while the first chunks arrive
+  for (int e = tid; e < BP * DP; e += T) {
+    const int i = e / DP, c = e - i * DP;
+    xs[e] = p0 + i < P && c < D ? a.xs[(size_t)(p0 + i) * D + c] : 0.f;
+  }
+  for (int e = tid; e < BM * DP; e += T) {
+    const int m = e / DP, c = e - m * DP;
+    Xs[e] = m0 + m < M && c < D ? a.xt[(size_t)(m0 + m) * D + c] : 0.f;
+  }
+  for (int e = tid; e < BP; e += T) {
+    const bool ok = p0 + e < P;
+    g1s[e] = ok ? g1[(size_t)g * P + p0 + e] : 0.f;
+    g2s[e] = ok ? g2[(size_t)g * P + p0 + e] : 0.f;
+  }
+  for (int e = tid; e < BM; e += T) {
+    const bool ok = m0 + e < M;
+    als[e] = ok ? a.alpha[(size_t)g * M + m0 + e] : 0.f;
+    mks[e] = ok ? a.mask[(size_t)g * M + m0 + e] : 0.f;
+  }
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[r][j] = 0.f;
+
+  for (int ch = 0; ch < nk; ++ch) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (ch + STAGES - 1 < nk) load_stage((ch + STAGES - 1) % STAGES, ch + STAGES - 1);
+    cp_async_commit();
+    const float* Ak = ring + (ch % STAGES) * STAGE;
+    const float* Bk = Ak + BP * PITCH;
+#pragma unroll
+    for (int q = 0; q < KS; q += 4) {
+      const int k4 = slice * KS + q;
+      float4 av[TM], bv[TN];
+#pragma unroll
+      for (int r = 0; r < TM; ++r) av[r] = *reinterpret_cast<const float4*>(Ak + (ty * TM + r) * PITCH + k4);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) bv[j] = *reinterpret_cast<const float4*>(Bk + (tx + j * TX) * PITCH + k4);
+#pragma unroll
+      for (int r = 0; r < TM; ++r)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          float v = acc[r][j];
+          v = fmaf(av[r].x, bv[j].x, v);
+          v = fmaf(av[r].y, bv[j].y, v);
+          v = fmaf(av[r].z, bv[j].z, v);
+          acc[r][j] = fmaf(av[r].w, bv[j].w, v);
+        }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the sums below
+  gather_slices<SLICES, K2_TILE_T>(acc, ring, slice, t);
+
+  // chain rule for the (i, m) pairs of the slice's rows; points past M have
+  // mask 0
+  float w[DP], p1[DP], pa[DP], pb[DP];
+#pragma unroll
+  for (int c = 0; c < DP; ++c) {
+    const bool in = c < D;
+    w[c] = in ? a.se_w[g * D + c] : 0.f;
+    if (POLY) {
+      p1[c] = in ? a.poly1[g * (D + 1) + c] : 0.f;
+      pa[c] = in ? a.poly2a[g * D + c] : 0.f;
+      pb[c] = in ? a.poly2b[g * D + c] : 0.f;
+    }
+  }
+  const float lam = a.se_lam[g];
+  float part[TM][DP];
+#pragma unroll
+  for (int r = 0; r < TM; ++r) {
+    if (r / RPS != slice) continue;
+    const int i = ty * TM + r;
+    const float* xi = xs + i * DP;
+    const float h1 = g1s[i], h2 = 2.f * g2s[i];
+#pragma unroll
+    for (int c = 0; c < DP; ++c) part[r][c] = 0.f;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int m = tx + j * TX;
+      const float* xm = Xs + m * DP;
+      const float kbar = (h1 * als[m] + h2 * acc[r][j]) * mks[m];
+      float d = 0.f, a2 = 0.f, b2 = 0.f;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) {
+        const float df = xi[c] - xm[c];
+        d = fmaf(w[c] * df, df, d);
         if (POLY) {
           const float xx = xi[c] * xm[c];
-          a2 += pa[c] * xx;
-          b2 += pb[c] * xx;
+          a2 = fmaf(pa[c], xx, a2);
+          b2 = fmaf(pb[c], xx, b2);
         }
       }
-      const float dbar = -kbar * lam * expf(-d);
-      for (int c = 0; c < D; ++c) {
-        float v = 2.f * w[c] * dbar * (xi[c] - xm[c]);
-        if (POLY) v += kbar * xm[c] * (p1[c] + pa[c] * b2 + pb[c] * a2);
-        v = warp_sum(v);
-        if (lane == 0) part[(warp * TP + i) * D + c] += v;
+      const float dbar2 = -2.f * kbar * lam * expf(-d);  // 2 * dbar
+#pragma unroll
+      for (int c = 0; c < DP; ++c) {
+        float v = w[c] * dbar2 * (xi[c] - xm[c]);
+        if (POLY) v = fmaf(kbar * xm[c], p1[c] + pa[c] * b2 + pb[c] * a2, v);
+        part[r][c] += v;
       }
     }
   }
+
+  // sum over the tile's points: red[i][tx][c], then TX values per (i, c)
+  float* red = ring + XCH;
+#pragma unroll
+  for (int r = 0; r < TM; ++r)
+    if (r / RPS == slice)
+#pragma unroll
+      for (int c = 0; c < DP; ++c) red[((ty * TM + r) * TX + tx) * DP + c] = part[r][c];
   __syncthreads();
-  for (int e = tid; e < TP * D; e += THREADS) {
+  for (int e = tid; e < BP * D; e += T) {
     const int i = e / D, c = e - i * D;
-    if (p0 + i < a.P) {
-      float s = 0.f;
-      for (int wp = 0; wp < WARPS; ++wp) s += part[(wp * TP + i) * D + c];
-      dxp[((size_t)g * a.P + p0 + i) * D + c] = s;
-    }
+    if (p0 + i >= P) continue;
+    float s = 0.f;
+    for (int t = 0; t < TX; ++t) s += red[(i * TX + t) * DP + c];
+    dxp[(((size_t)g * gridDim.x + mt) * P + p0 + i) * D + c] = s;
   }
-}
-
-size_t fwd_smem(int M, int D) { return sizeof(float) * (size_t)(M * TP + M * D + TP * D + WARPS * TP); }
-
-size_t bwd_smem(int M, int D) {
-  return sizeof(float) *
-         (size_t)(2 * M * TP + M * D + TP * D + THREADS * (TILE_N + 1) + WARPS * TP * D + 2 * TP);
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 Args make_args(const float* se_w, const float* se_lam, const float* poly1, const float* poly2a,
                const float* poly2b, const float* xs, const float* xt, const float* alpha,
-               const float* F, const float* mask, int G, int P, int M, int D) {
+               const float* F, const float* mask, int G, int P, int M, int D, int vec) {
   Args a;
   a.se_w = se_w; a.se_lam = se_lam; a.poly1 = poly1; a.poly2a = poly2a; a.poly2b = poly2b;
   a.xs = xs; a.xt = xt; a.alpha = alpha; a.F = F; a.mask = mask;
-  a.G = G; a.P = P; a.M = M; a.D = D;
+  a.G = G; a.P = P; a.M = M; a.D = D; a.vec = vec != 0;
   return a;
+}
+
+template <int DP, bool POLY>
+void launch_k1(const Args& a, float* kalpha, float* qpart, float* kf, cudaStream_t s) {
+  const dim3 grid((a.M + K1_BN - 1) / K1_BN, (a.P + K1_BP - 1) / K1_BP, a.G);
+  k1_forward<DP, POLY><<<grid, K1_THREADS, 0, s>>>(a, kalpha, qpart, kf);
+}
+
+template <int DP, bool POLY>
+void launch_k2(const Args& a, const float* kf, const float* g1, const float* g2, float* dxp,
+               cudaStream_t s) {
+  const dim3 grid((a.M + K2_BM - 1) / K2_BM, (a.P + K2_BP - 1) / K2_BP, a.G);
+  k2_backward_xstar<DP, POLY><<<grid, K2_THREADS, 0, s>>>(a, kf, g1, g2, dxp);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t: 0 when the launch was accepted.
+// Tile sizes, for the caller's partial-sum buffers:
+// {K1 particles, K1 columns of F, K2 particles, K2 training points}.
+void fp_tiles(int* out) {
+  out[0] = K1_BP; out[1] = K1_BN; out[2] = K2_BP; out[3] = K2_BM;
+}
+
+// K1.  qpart is [G, ceil(M / K1_BN), P]; kf [G, P, M] or null.  Returns a
+// cudaError_t: 0 when the launch was accepted.
 int fp_forward(const float* se_w, const float* se_lam, const float* poly1, const float* poly2a,
                const float* poly2b, const float* xs, const float* xt, const float* alpha,
-               const float* F, const float* mask, float* kalpha, float* quad, int G, int P,
-               int M, int D, int use_poly, void* stream) {
-  const Args a = make_args(se_w, se_lam, poly1, poly2a, poly2b, xs, xt, alpha, F, mask, G, P, M, D);
-  const dim3 grid((P + TP - 1) / TP, G);
-  const size_t smem = fwd_smem(M, D);
+               const float* F, const float* mask, float* kalpha, float* qpart, float* kf, int G,
+               int P, int M, int D, int use_poly, int vec, void* stream) {
+  if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(se_w, se_lam, poly1, poly2a, poly2b, xs, xt, alpha, F, mask, G, P, M, D, vec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (use_poly) {
-    if ((err = allow_smem(fwd_kernel<true>, smem)) != cudaSuccess) return (int)err;
-    fwd_kernel<true><<<grid, THREADS, smem, s>>>(a, kalpha, quad);
+  if (D <= 6) {
+    if (use_poly) launch_k1<6, true>(a, kalpha, qpart, kf, s);
+    else launch_k1<6, false>(a, kalpha, qpart, kf, s);
   } else {
-    if ((err = allow_smem(fwd_kernel<false>, smem)) != cudaSuccess) return (int)err;
-    fwd_kernel<false><<<grid, THREADS, smem, s>>>(a, kalpha, quad);
+    if (use_poly) launch_k1<8, true>(a, kalpha, qpart, kf, s);
+    else launch_k1<8, false>(a, kalpha, qpart, kf, s);
   }
   return (int)cudaGetLastError();
 }
 
+// K2.  kf is K1's [G, P, M]; dxp is [G, ceil(M / K2_BM), P, D].
 int fp_backward_xstar(const float* se_w, const float* se_lam, const float* poly1,
                       const float* poly2a, const float* poly2b, const float* xs,
                       const float* xt, const float* alpha, const float* F, const float* mask,
-                      const float* g1, const float* g2, float* dxp, int G, int P, int M, int D,
-                      int use_poly, void* stream) {
-  const Args a = make_args(se_w, se_lam, poly1, poly2a, poly2b, xs, xt, alpha, F, mask, G, P, M, D);
-  const dim3 grid((P + TP - 1) / TP, G);
-  const size_t smem = bwd_smem(M, D);
+                      const float* kf, const float* g1, const float* g2, float* dxp, int G, int P,
+                      int M, int D, int use_poly, int vec, void* stream) {
+  if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(se_w, se_lam, poly1, poly2a, poly2b, xs, xt, alpha, F, mask, G, P, M, D, vec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (use_poly) {
-    if ((err = allow_smem(bwd_kernel<true>, smem)) != cudaSuccess) return (int)err;
-    bwd_kernel<true><<<grid, THREADS, smem, s>>>(a, g1, g2, dxp);
+  if (D <= 6) {
+    if (use_poly) launch_k2<6, true>(a, kf, g1, g2, dxp, s);
+    else launch_k2<6, false>(a, kf, g1, g2, dxp, s);
   } else {
-    if ((err = allow_smem(bwd_kernel<false>, smem)) != cudaSuccess) return (int)err;
-    bwd_kernel<false><<<grid, THREADS, smem, s>>>(a, g1, g2, dxp);
+    if (use_poly) launch_k2<8, true>(a, kf, g1, g2, dxp, s);
+    else launch_k2<8, false>(a, kf, g1, g2, dxp, s);
   }
   return (int)cudaGetLastError();
 }

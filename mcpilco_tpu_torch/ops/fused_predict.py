@@ -1,4 +1,4 @@
-"""Fused multi-head GP posterior prediction: two CUDA kernels and their twin.
+"""Fused multi-head GP posterior prediction: two CUDA kernels and their plain twins.
 
 The rollout evaluates, per scan step and per GP head,
 
@@ -9,10 +9,13 @@ The rollout evaluates, per scan step and per GP head,
 ``csrc/fused_predict.cu`` computes this chain in one kernel per call (K1)
 and x*'s cotangent in a second (K2); they replace the Pallas kernels
 ``fused_gram_contract`` and ``fused_gram_contract_bwd_xstar`` of
-``mcpilco_tpu/ops/fused_predict.py``.  :class:`GramContract` is the autograd
-function around them.  On a CUDA tensor it launches the kernels or raises; on
-a CPU tensor it uses :func:`reference_gram_contract`, the plain PyTorch twin,
-which is also the oracle the kernels are held against on the card.
+``mcpilco_tpu/ops/fused_predict.py``.  When x* needs a gradient, K1 also
+returns kF = k* @ F, which K2 consumes in place of recomputing it.
+:class:`GramContract` is the autograd function around them.  On a CUDA
+tensor it launches the kernels or raises; on a CPU tensor it uses their
+plain PyTorch versions, :func:`reference_gram_contract` and
+:func:`reference_gram_contract_bwd_xstar`, which are also the oracles the
+kernels are held against on the card.
 
 The kernels are built from the checkout's sources with ``nvcc`` for
 ``sm_90a`` at first use, into ``mcpilco_tpu_torch/_build/``, and bound
@@ -33,11 +36,13 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_predict.cu"
 BUILD_DIR = _PKG / "_build"
+MAX_D = 8  # input dims the kernels take (csrc MAX_D)
 
 # Kernel launches by the wrappers below, one per launch.
 launches = {"fwd": 0, "bwd": 0}
 
 _lib = None
+_tiles = None  # (K1 particles, K1 columns of F, K2 particles, K2 training points) per block
 
 
 def _nvcc() -> str:
@@ -71,20 +76,36 @@ def build():
     return out, proc.stdout + proc.stderr
 
 
+def bind(path):
+    """Load a built library and make it the one the wrappers launch."""
+    global _lib, _tiles
+    lib = ctypes.CDLL(str(path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.fp_forward.argtypes = [ptr] * 13 + [i32] * 6 + [ptr]
+    lib.fp_forward.restype = i32
+    lib.fp_backward_xstar.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
+    lib.fp_backward_xstar.restype = i32
+    lib.fp_error_string.argtypes = [i32]
+    lib.fp_error_string.restype = ctypes.c_char_p
+    lib.fp_tiles.argtypes = [ptr]
+    lib.fp_tiles.restype = None
+    tiles = (ctypes.c_int * 4)()
+    lib.fp_tiles(tiles)
+    _lib, _tiles = lib, tuple(tiles)
+    return lib
+
+
 def _library():
-    global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.fp_forward.argtypes = [ptr] * 12 + [i32] * 5 + [ptr]
-        lib.fp_forward.restype = i32
-        lib.fp_backward_xstar.argtypes = [ptr] * 13 + [i32] * 5 + [ptr]
-        lib.fp_backward_xstar.restype = i32
-        lib.fp_error_string.argtypes = [i32]
-        lib.fp_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        bind(build()[0])
     return _lib
+
+
+def launch_blocks(G: int, P: int, M: int):
+    """Blocks per launch of (K1, K2) at these shapes."""
+    _library()
+    k1_bp, k1_bn, k2_bp, k2_bm = _tiles
+    return G * -(-P // k1_bp) * -(-M // k1_bn), G * -(-P // k2_bp) * -(-M // k2_bm)
 
 
 def _check_launch(lib, err: int, name: str) -> None:
@@ -93,7 +114,7 @@ def _check_launch(lib, err: int, name: str) -> None:
 
 
 _ARG_NAMES = ("se_w", "se_lam", "poly1", "poly2a", "poly2b", "x_star", "x_tr", "alpha",
-              "var_factor", "mask", "g1", "g2")
+              "var_factor", "mask", "kf", "g1", "g2")
 
 
 def _validate(tensors, shapes, device):
@@ -114,68 +135,113 @@ def _shapes(se_w, x_star, x_tr):
     P, M = x_star.shape[0], x_tr.shape[0]
     if P == 0 or M == 0:
         raise ValueError("the kernels need at least one particle and one training point")
+    if D > MAX_D:
+        raise ValueError(f"the kernels take at most {MAX_D} input dims, got {D}")
     return G, P, M, D, [(G, D), (G,), (G, D + 1), (G, D), (G, D), (P, D), (M, D), (G, M),
-                        (G, M, M), (G, M), (G, P), (G, P)]
+                        (G, M, M), (G, M), (G, P, M), (G, P), (G, P)]
+
+
+def _vec(M, *tensors) -> int:
+    """1 when F's and kF's rows can be copied 16 bytes at a time."""
+    return int(M % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors if t is not None))
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def fused_gram_contract(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, var_factor,
-                        mask, use_poly: bool):
-    """K1 on the card: returns (kalpha [G, P], quad [G, P]).
+                        mask, use_poly: bool, return_kf: bool = False):
+    """K1 on the card: returns (kalpha [G, P], quad [G, P]), and kF [G, P, M]
+    too when ``return_kf``.
 
     se_w [G, D] inverse squared lengthscales; se_lam [G] outputscales;
     poly1 [G, D+1], poly2a/b [G, D]; x_star [P, D]; x_tr [M, D];
-    alpha [G, M]; var_factor [G, M, M] (F); mask [G, M].
+    alpha [G, M]; var_factor [G, M, M] (F); mask [G, M].  The kernel writes
+    quad's partial sums per tile of F's columns; they are summed here.
     """
     args = (se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, var_factor, mask)
     G, P, M, D, shapes = _shapes(se_w, x_star, x_tr)
     _validate(args, shapes, x_star.device)
     lib = _library()
-    kalpha = torch.empty((G, P), dtype=torch.float32, device=x_star.device)
-    quad = torch.empty_like(kalpha)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x_star.device)
+    kalpha, qpart = new(G, P), new(G, -(-M // _tiles[1]), P)
+    kf = new(G, P, M) if return_kf else None
     err = lib.fp_forward(
-        *(t.data_ptr() for t in args), kalpha.data_ptr(), quad.data_ptr(),
-        G, P, M, D, int(bool(use_poly)), torch.cuda.current_stream(x_star.device).cuda_stream,
+        *(t.data_ptr() for t in args), kalpha.data_ptr(), qpart.data_ptr(),
+        None if kf is None else kf.data_ptr(), G, P, M, D, int(bool(use_poly)),
+        _vec(M, var_factor, kf), _stream(x_star.device),
     )
     _check_launch(lib, err, "fp_forward")
     launches["fwd"] += 1
-    return kalpha, quad
+    quad = qpart.sum(dim=1)
+    return (kalpha, quad, kf) if return_kf else (kalpha, quad)
 
 
 def fused_gram_contract_bwd_xstar(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha,
-                                  var_factor, mask, g1, g2, use_poly: bool):
+                                  var_factor, mask, kf, g1, g2, use_poly: bool):
     """K2 on the card: d(loss)/d(x_star) [P, D] for cotangents g1, g2 [G, P]
-    of (kalpha, quad).  The kernel writes per-head partials; the heads are
-    summed here."""
-    args = (se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, var_factor, mask, g1, g2)
+    of (kalpha, quad), from K1's kF [G, P, M].  The kernel writes partials
+    per head and per tile of training points; they are summed here."""
+    args = (se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, var_factor, mask, kf,
+            g1, g2)
     G, P, M, D, shapes = _shapes(se_w, x_star, x_tr)
     _validate(args, shapes, x_star.device)
     lib = _library()
-    dxp = torch.empty((G, P, D), dtype=torch.float32, device=x_star.device)
+    dxp = torch.empty((G, -(-M // _tiles[3]), P, D), dtype=torch.float32, device=x_star.device)
     err = lib.fp_backward_xstar(
-        *(t.data_ptr() for t in args), dxp.data_ptr(),
-        G, P, M, D, int(bool(use_poly)), torch.cuda.current_stream(x_star.device).cuda_stream,
+        *(t.data_ptr() for t in args), dxp.data_ptr(), G, P, M, D, int(bool(use_poly)),
+        _vec(M, var_factor, kf), _stream(x_star.device),
     )
     _check_launch(lib, err, "fp_backward_xstar")
     launches["bwd"] += 1
-    return dxp.sum(dim=0)
+    return dxp.sum(dim=(0, 1))
+
+
+def _gram_terms(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, use_poly):
+    """k_se [G, P, M] and, in 'se+p2', the polynomial terms (lin1, a2, b2)."""
+    diff = x_star[:, None, :] - x_tr[None, :, :]  # [P, M, D]
+    d = torch.einsum("pmd,gd->gpm", diff * diff, se_w)
+    k_se = se_lam[:, None, None] * torch.exp(-d)
+    if not use_poly:
+        return k_se, None
+    lin1 = torch.einsum("pd,gd,md->gpm", x_star, poly1[:, :-1], x_tr) + poly1[:, -1:, None]
+    a2 = torch.einsum("pd,gd,md->gpm", x_star, poly2a, x_tr)
+    b2 = torch.einsum("pd,gd,md->gpm", x_star, poly2b, x_tr)
+    return k_se, (lin1, a2, b2)
 
 
 def reference_gram_contract(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha,
-                            var_factor, mask, use_poly: bool):
-    """Plain PyTorch twin of K1 (same formulas): the CPU path, the source of
-    every gradient but x*'s on the card, and the kernels' oracle."""
-    diff = x_star[:, None, :] - x_tr[None, :, :]  # [P, M, D]
-    d = torch.einsum("pmd,gd->gpm", diff * diff, se_w)
-    k = se_lam[:, None, None] * torch.exp(-d)
-    if use_poly:
-        lin1 = torch.einsum("pd,gd,md->gpm", x_star, poly1[:, :-1], x_tr) + poly1[:, -1:, None]
-        a2 = torch.einsum("pd,gd,md->gpm", x_star, poly2a, x_tr)
-        b2 = torch.einsum("pd,gd,md->gpm", x_star, poly2b, x_tr)
+                            var_factor, mask, use_poly: bool, return_kf: bool = False):
+    """Plain PyTorch version of K1 (same formulas): the CPU path, the source
+    of every gradient but x*'s, and K1's oracle on the card."""
+    k, poly = _gram_terms(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, use_poly)
+    if poly is not None:
+        lin1, a2, b2 = poly
         k = k + lin1 + a2 * b2
     k = k * mask[:, None, :]
     kalpha = torch.einsum("gpm,gm->gp", k, alpha)
     kf = torch.matmul(k, var_factor)
-    return kalpha, torch.sum(kf * kf, dim=-1)
+    quad = torch.sum(kf * kf, dim=-1)
+    return (kalpha, quad, kf) if return_kf else (kalpha, quad)
+
+
+def reference_gram_contract_bwd_xstar(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha,
+                                      var_factor, mask, kf, g1, g2, use_poly: bool):
+    """Plain PyTorch version of K2: d(loss)/d(x_star) [P, D] from kF [G, P, M]
+    and the cotangents g1, g2 [G, P] of (kalpha, quad).  The formulas of the
+    TPU kernel's body (``_make_bwd_body``, mcpilco_tpu/ops/fused_predict.py)
+    with kF given instead of recomputed; K2's oracle on the card."""
+    k_se, poly = _gram_terms(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, use_poly)
+    kf_ft = torch.matmul(kf, var_factor.transpose(1, 2))  # [G, P, M]
+    kbar = (g1[:, :, None] * alpha[:, None, :] + 2.0 * g2[:, :, None] * kf_ft) * mask[:, None, :]
+    dbar = -kbar * k_se  # cotangent of the squared distance
+    dx = 2.0 * se_w[:, None, :] * (x_star * dbar.sum(-1, keepdim=True) - dbar @ x_tr)
+    if poly is not None:
+        _, a2, b2 = poly
+        dx = (dx + poly1[:, None, :-1] * (kbar @ x_tr) + poly2a[:, None, :] * ((kbar * b2) @ x_tr)
+              + poly2b[:, None, :] * ((kbar * a2) @ x_tr))
+    return dx.sum(dim=0)
 
 
 def _prep(t):
@@ -185,49 +251,59 @@ def _prep(t):
 class GramContract(torch.autograd.Function):
     """(kalpha, quad) of the fused contraction, differentiable.
 
-    x*'s cotangent comes from K2 on the card.  Every other input's cotangent
-    comes from the twin, and only when ``ctx.needs_input_grad`` asks for it:
-    in the policy loop the posterior and hyperparameters are constants, so
-    only K1 and K2 run.
+    x*'s cotangent comes from K2 on the card (its plain version on the CPU)
+    and reuses the kF that the forward saved when ``save_kf``.  Every other
+    input's cotangent comes from the plain K1, and only when
+    ``ctx.needs_input_grad`` asks for it: in the policy loop the posterior
+    and hyperparameters are constants, so only K1 and K2 run.
     """
 
     @staticmethod
     def forward(ctx, se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, var_factor,
-                mask, use_poly):
+                mask, use_poly, save_kf):
         args = (se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, var_factor, mask)
         ctx.use_poly = use_poly
-        ctx.save_for_backward(*args)
         if x_star.is_cuda:
-            return fused_gram_contract(*(_prep(t) for t in args), use_poly)
-        return reference_gram_contract(*args, use_poly)
+            out = fused_gram_contract(*(_prep(t) for t in args), use_poly, save_kf)
+        else:
+            out = reference_gram_contract(*args, use_poly, save_kf)
+        ctx.save_for_backward(*args, out[2] if save_kf else None)
+        return out[0], out[1]
 
     @staticmethod
     def backward(ctx, g_kalpha, g_quad):
-        args = ctx.saved_tensors
+        *args, kf = ctx.saved_tensors
         x_star = args[5]
         zeros = x_star.new_zeros(args[0].shape[0], x_star.shape[0])
         g1 = zeros if g_kalpha is None else g_kalpha
         g2 = zeros if g_quad is None else g_quad
         grads = [None] * len(args)
         needs = list(ctx.needs_input_grad[: len(args)])
-        if needs[5] and x_star.is_cuda:
-            grads[5] = fused_gram_contract_bwd_xstar(
-                *(_prep(t) for t in args), _prep(g1), _prep(g2), ctx.use_poly
-            ).to(x_star.dtype)
+        if needs[5]:  # then x* required grad under grad mode, and the forward saved kF
+            if x_star.is_cuda:
+                grads[5] = fused_gram_contract_bwd_xstar(
+                    *(_prep(t) for t in (*args, kf, g1, g2)), ctx.use_poly
+                ).to(x_star.dtype)
+            else:
+                grads[5] = reference_gram_contract_bwd_xstar(*args, kf, g1, g2, ctx.use_poly)
             needs[5] = False
         wanted = [i for i, n in enumerate(needs) if n]
         if wanted:
             with torch.enable_grad():
                 leaves = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(args)]
-                out = reference_gram_contract(*leaves, ctx.use_poly)
-                got = torch.autograd.grad(out, [leaves[i] for i in wanted], (g1, g2),
-                                          allow_unused=True)
+                # quad does not depend on alpha: pass on only the outputs
+                # that reach a wanted input
+                out = [(o, g) for o, g in zip(reference_gram_contract(*leaves, ctx.use_poly),
+                                               (g1, g2)) if o.requires_grad]
+                got = torch.autograd.grad([o for o, _ in out], [leaves[i] for i in wanted],
+                                          [g for _, g in out], allow_unused=True)
             for i, g in zip(wanted, got):
                 grads[i] = g
-        return (*grads, None)
+        return (*grads, None, None)
 
 
 def gram_contract(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, var_factor, mask,
                   use_poly: bool):
+    save_kf = torch.is_grad_enabled() and x_star.requires_grad
     return GramContract.apply(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha,
-                              var_factor, mask, use_poly)
+                              var_factor, mask, use_poly, save_kf)

@@ -1,5 +1,5 @@
-"""The port's fused-predict twin and GramContract (CPU path) against the JAX
-package's Pallas kernel (interpret mode) and its plain-jnp twin.
+"""The port's plain fused-predict functions and GramContract (CPU path)
+against the JAX package's Pallas kernels (interpret mode) and plain-jnp twin.
 
 The same numpy inputs go through both packages.  Tolerances are those of
 tests/test_fused_predict.py: forward rtol 2e-5 / atol 1e-5 (float32 sums in a
@@ -98,6 +98,24 @@ def test_other_input_gradients_come_from_the_twin():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)
 
 
+def test_alpha_gradient_alone_matches_jax():
+    """alpha's cotangent asked for alone (quad does not depend on alpha)."""
+    args = _inputs(P=12, M=32, seed=6)
+
+    def loss_jax(alpha):
+        a = list(map(jnp.asarray, args))
+        a[7] = alpha
+        ka, qd = jfp.gram_contract(*a, True, True)
+        return jnp.sum(ka * ka) + jnp.sum(qd)
+
+    g_jax = jax.jit(jax.grad(loss_jax))(jnp.asarray(args[7]))
+    t_args = [torch.as_tensor(a) for a in args]
+    t_args[7].requires_grad_(True)
+    ka, qd = tfp.gram_contract(*t_args, True)
+    (g_t,) = torch.autograd.grad(torch.sum(ka * ka) + torch.sum(qd), t_args[7])
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_jax), rtol=1e-4, atol=1e-5)
+
+
 def test_cpu_path_launches_no_kernel_and_kernel_wrappers_refuse_cpu_tensors():
     args = [torch.as_tensor(a) for a in _inputs(P=8, M=16)]
     before = dict(tfp.launches)
@@ -108,5 +126,53 @@ def test_cpu_path_launches_no_kernel_and_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tfp.fused_gram_contract(*args, True)
     g = torch.ones(2, 8)
+    kf = torch.ones(2, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
-        tfp.fused_gram_contract_bwd_xstar(*args, g, g, True)
+        tfp.fused_gram_contract_bwd_xstar(*args, kf, g, g, True)
+
+
+@pytest.mark.parametrize("use_poly", [False, True])
+@pytest.mark.parametrize("P", [1, 37, 50])
+@pytest.mark.parametrize("M", [37, 64])
+def test_plain_k2_matches_pallas_backward(use_poly, P, M):
+    """K2's plain version, fed kF from the port's plain K1, against the x*
+    cotangent of the JAX custom_vjp (Pallas backward, interpret mode)."""
+    args = _inputs(P=P, M=M, seed=200 + P + M)
+    wk, wq = _cotangents(P)
+
+    def loss_jax(xs):
+        a = list(map(jnp.asarray, args))
+        a[5] = xs
+        ka, qd = jfp.gram_contract(*a, use_poly, True)
+        return jnp.sum(wk * ka) + jnp.sum(wq * qd)
+
+    g_jax = np.asarray(jax.jit(jax.grad(loss_jax))(jnp.asarray(args[5])))
+    t_args = [torch.as_tensor(a) for a in args]
+    ka, qd, kf = tfp.reference_gram_contract(*t_args, use_poly, return_kf=True)
+    assert kf.shape == (2, P, M)
+    g_t = tfp.reference_gram_contract_bwd_xstar(*t_args, kf, torch.as_tensor(wk),
+                                                torch.as_tensor(wq), use_poly)
+    np.testing.assert_allclose(g_t.numpy(), g_jax, **GRAD)
+
+
+def test_kf_is_saved_only_for_a_gradient_of_x_star(monkeypatch):
+    """GramContract asks the forward for kF only when x*'s cotangent will be
+    taken: not under no_grad, and not when only other inputs need grads."""
+    args = [torch.as_tensor(a) for a in _inputs(P=6, M=16, seed=3)]
+    asked = []
+    plain = tfp.reference_gram_contract
+
+    def spy(*a, **kw):
+        asked.append(bool(a[11]) if len(a) > 11 else kw.get("return_kf", False))
+        return plain(*a, **kw)
+
+    monkeypatch.setattr(tfp, "reference_gram_contract", spy)
+    xs = args[5].clone().requires_grad_(True)
+    with torch.no_grad():
+        tfp.gram_contract(*args[:5], xs, *args[6:], True)
+    alpha = args[7].clone().requires_grad_(True)
+    ka, _ = tfp.gram_contract(*args[:7], alpha, *args[8:], True)
+    torch.autograd.grad(ka.sum(), alpha)
+    ka, qd = tfp.gram_contract(*args[:5], xs, *args[6:], True)
+    torch.autograd.grad(ka.sum() + qd.sum(), xs)
+    assert asked == [False, False, False, True]
