@@ -24,24 +24,57 @@ Phases (each prints one line with its time; any failure exits non-zero):
    the learning-curve check: 10 steps from one key through the kernels and
    through ``MultiGP._predict_plain``, both cost trajectories printed;
 4. the flagship main path through the user's entry points:
-   ``cartpole.build`` then ``reinforce`` for 2 trials at full width, and
-   the multi-init variant for 1 trial, with the kernel launch counts of
-   those runs;
+   ``cartpole.build`` then ``reinforce`` for 2 trials of 30 steps at full
+   width, and the multi-init variant for 1 trial of 20, with the kernel
+   launch counts of those runs;
 5. the 4PMS policy-optimization step: 5 sinusoid-exploration trials
    through the PMS plant with offline filtering (N=440, M=448), a
    1501-epoch exact GP fit, the fitted 'se' posterior through K1 against
    float64, 30 optimizer steps at P=400 and horizon 90, and the
    learning-curve check;
 6. the 4PMS main path: ``cartpole_pms.build`` then ``reinforce`` for 2
-   trials at full width, with its launch counts.
+   trials of 40 steps at full width, with its launch counts;
+7. the seed farm at full width: ``SeedFarm`` over 4 flagship seeds (P=400,
+   horizon 60, SE+P(2), SOD, 1501-epoch fits), 1 exploration and 2 trials
+   of 30 steps, K1/K2 launched with 4 lanes; then the farm's optimizer
+   step profiled beside one seed's (host ms/step, device busy, device
+   events per step, idle share), and one seed's 10-step cost curve farmed
+   against the same seed trained alone (within 0.1% relative);
+8. restart lanes: a 1-trial 4PMS ``reinforce`` with ``num_restarts=2``,
+   with each lane's cost and the winner.
+
+Phase 2 also holds the lane-batched K1/K2 (L in {1, 4} at the flagship and
+4PMS shapes, L=3 at M=37, whose lane strides are not 16-byte aligned, L=4
+at the farm's M=128, and P=800 for two folded restart lanes) against their
+plain versions and, lane by lane, bitwise against the L=1 launch, with
+device time per launch beside L x the L=1 time; and ``MultiGP.predict`` as
+the restart fold and the farm's lane posteriors call it, lane by lane
+against ``MultiGP._predict_plain``.
 
 There is no CPU path: without a CUDA device the script exits non-zero.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it lists the
-kernels with their launches (phases 4 and 6), errors and device times at
-the flagship shapes.
+kernels with their launches (phases 4, 6, 7 and 8), errors, device times at
+the flagship shapes and their bounds.
+
+    python3 chip_smoke.py --farm-sweep 1,2,4,8
+
+builds the kernels and profiles instead the farm's optimizer step at each
+seed count S (6 exploration trials per seed, N=360, a 1501-epoch fit, the
+SOD posterior in the M=384 bucket): host ms per step of all seeds, device
+busy, device events per step and idle share.
+
+    python3 chip_smoke.py --step-profile PATH
+
+profiles the single-seed flagship optimizer step of the package in the
+checkout at PATH (another commit unpacked with ``git archive``, to compare
+two commits in turns in one call) through its public entry points: 6
+exploration trials, a 500-epoch fit, then host ms/step three times, device
+busy and device events per step, and the events per step of each kernel.
 """
 
+import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -57,6 +90,18 @@ FWD_TOL = dict(rtol=2e-5, atol=1e-5)  # tests/test_fused_predict.py:32
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_fused_predict.py:65
 G, D, M_FLAGSHIP, M_PMS = 2, 6, 384, 448
 SWEEP_P, SWEEP_M = (1, 37, 400), (37, 100, 384, 448, 1024)
+# (use_poly, P, M, lane counts) of the lane-batched checks; M=37 gives lane
+# strides of F that are not a multiple of 16 bytes; P=800 is two restart
+# lanes folded into one call (phase 8 and the 4PMS protocol), L=4 at M=128
+# the farm's launches (phase 7)
+M_SMALL = 128
+LANE_CASES = ((True, 400, M_FLAGSHIP, (1, 4)), (False, 400, M_PMS, (1, 4)),
+              (False, 37, 37, (3,)), (True, 37, 37, (3,)), (True, 400, M_SMALL, (4,)),
+              (False, 800, M_SMALL, (1,)), (False, 800, M_PMS, (1,)))
+FARM_SEEDS = 4
+# NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): float32 outside
+# the tensor cores, and HBM
+PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
 
 
 def phase(name, t0):
@@ -216,12 +261,154 @@ def check_kernels(fp, dev):
     for use_poly, M in ((True, M_FLAGSHIP), (False, M_FLAGSHIP), (False, M_PMS)):
         t = time_kernels(fp, use_poly, M, dev)
         if use_poly:  # the flagship shapes
-            rec["fwd"].update(ms=t["k1_kernel"], plain_ms=t["k1_plain"])
-            rec["bwd"].update(ms=t["k2_kernel"], plain_ms=t["k2_plain"])
+            for key, work, kernel in (("fwd", k1_work, "k1"), ("bwd", k2_work, "k2")):
+                ms, by = bound(work(1, 400, M, use_poly))
+                rec[key].update(ms=t[f"{kernel}_kernel"], plain_ms=t[f"{kernel}_plain"],
+                                bound_ms=ms, bound_by=by, library_ms=None)
     for M in (M_FLAGSHIP, M_PMS):
         k1, k2 = fp.launch_blocks(G, 400, M)
         print(f"  blocks per launch at P=400 M={M}: K1 {k1}, K2 {k2} (132 SMs)", flush=True)
+    for e_fwd, e_bwd in (check_lanes(fp, dev), check_predict_lanes(dev)):
+        rec["fwd"]["max_abs_err"] = max(rec["fwd"]["max_abs_err"], e_fwd)
+        rec["bwd"]["max_abs_err"] = max(rec["bwd"]["max_abs_err"], e_bwd)
     return rec
+
+
+def k1_work(L, P, M, use_poly):
+    """(bytes, flops) of K1 as the main path calls it (kF saved): every
+    input read once, every output written once; flops of the kF
+    contraction, kalpha, quad and the k generation (distance, exp, mask and
+    the polynomial terms, an FMA counted as 2)."""
+    inputs = G * D + G + G * (D + 1) + 2 * G * D + P * D + M * D + G * M + G * M * M + G * M
+    outputs = 2 * G * P + G * P * M
+    gen = 4 * D + 4 + (6 * D + 3 if use_poly else 0)
+    return 4 * L * (inputs + outputs), L * G * P * M * (2 * M + 4 + gen)
+
+
+def k2_work(L, P, M, use_poly):
+    """(bytes, flops) of K2: reads K1's inputs, kF and the cotangents, writes
+    dx*; flops of R = kF F^T and the chain rule per (particle, point)."""
+    inputs = (G * D + G + G * (D + 1) + 2 * G * D + P * D + M * D + G * M + G * M * M + G * M
+              + G * P * M + 2 * G * P)
+    epi = 7 * D + 8 + (8 * D if use_poly else 0)
+    return 4 * L * (inputs + P * D), L * G * P * M * (2 * M + epi)
+
+
+def bound(work):
+    """The least time the card could take for (bytes, flops), in ms, and
+    what bounds it."""
+    t_bytes, t_ops = work[0] / PEAK_HBM_BYTES, work[1] / PEAK_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_lanes(fp, dev):
+    """Lane-batched K1 and K2: every lane against the plain version at
+    FWD_TOL / GRAD_TOL and bitwise against the L=1 launch on that lane's
+    inputs; device time per launch beside L x the L=1 time.  Returns the
+    max errors (K1, K2)."""
+    worst = [0.0, 0.0]
+    for use_poly, P, M, lane_counts in LANE_CASES:
+        kind = "se+p2" if use_poly else "se"
+        one_us = None
+        for L in lane_counts:
+            per = [kernel_inputs(P, M, seed=7 + P + M + 1000 * l, dev=dev) for l in range(L)]
+            args = [torch.stack(ts) for ts in zip(*per)]
+            wk, wq = (torch.stack([(l + 1.0) * w for l in range(L)]) for w in cotangents(P, dev))
+            ka, qd, kf = fp.fused_gram_contract(*args, use_poly, return_kf=True)
+            dx = fp.fused_gram_contract_bwd_xstar(*args, kf, wk, wq, use_poly)
+            errs = [0.0, 0.0]
+            for l in range(L):
+                one = fp.fused_gram_contract(*per[l], use_poly, return_kf=True)
+                dx1 = fp.fused_gram_contract_bwd_xstar(*per[l], one[2], wk[l], wq[l], use_poly)
+                ref = fp.reference_gram_contract(*per[l], use_poly, return_kf=True)
+                dxr = fp.reference_gram_contract_bwd_xstar(*per[l], ref[2], wk[l], wq[l],
+                                                           use_poly)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip((ka[l], qd[l], kf[l], dx[l]),
+                                                             (*one, dx1))):
+                    raise RuntimeError(f"{kind} L={L} P={P} M={M}: lane {l} differs from its "
+                                       f"L=1 launch")
+                for got, want in zip((ka[l], qd[l], kf[l]), ref):
+                    torch.testing.assert_close(got, want, **FWD_TOL)
+                torch.testing.assert_close(dx[l], dxr, **GRAD_TOL)
+                errs[0] = max([errs[0]] + [max_err(a, b) for a, b in zip(one, ref)])
+                errs[1] = max(errs[1], max_err(dx1, dxr))
+            worst = [max(w, e) for w, e in zip(worst, errs)]
+            per_us = {
+                "k1": named_us(device_us(lambda: fp.fused_gram_contract(
+                    *args, use_poly, return_kf=True)), "k1_forward"),
+                "k2": named_us(device_us(lambda: fp.fused_gram_contract_bwd_xstar(
+                    *args, kf, wk, wq, use_poly)), "k2_backward_xstar"),
+            }
+            one_us = one_us or per_us
+            b1, b2 = (bound(w(L, P, M, use_poly))[0] for w in (k1_work, k2_work))
+            print(f"  lanes {kind:5s} L={L} P={P} M={M}: every lane bitwise equal to its L=1 "
+                  f"launch; max err K1 {errs[0]:.3e} K2 {errs[1]:.3e} | device us per launch: "
+                  f"K1 {per_us['k1']:.2f} (L x L=1: {L * one_us['k1']:.2f}, bound "
+                  f"{1e3 * b1:.2f}), K2 {per_us['k2']:.2f} (L x L=1: {L * one_us['k2']:.2f}, "
+                  f"bound {1e3 * b2:.2f}); blocks {fp.launch_blocks(G, P, M, L)}", flush=True)
+    return tuple(worst)
+
+
+def check_predict_lanes(dev):
+    """``MultiGP.predict`` on the card as the lane paths call it: two
+    restart lanes' x* [2, 400, D] against one 'se' posterior, folded into
+    one P=800 launch (phase 8), at M=128 and 448, and four farm lanes' x*
+    [4, 400, D] against four 'se+p2' lane posteriors at M=128, one L=4
+    launch (phase 7).  Mean, var and x*'s gradient, lane by lane, against
+    ``MultiGP._predict_plain`` on that lane at FWD_TOL / GRAD_TOL; returns
+    the max errors (forward, gradient)."""
+    from mcpilco_tpu_torch.models import kernels as K
+    from mcpilco_tpu_torch.models.gp import MultiGP, Posterior, tree_map
+
+    dims = tuple(range(D))
+    worst = [0.0, 0.0]
+    for label, kern, L, shared, M in (
+            ("restart fold se", K.SEArd(dims), 2, True, M_SMALL),
+            ("restart fold se", K.SEArd(dims), 2, True, M_PMS),
+            ("farm lanes se+p2", K.se_plus_volterra(dims, 2), 4, False, M_SMALL)):
+        gp = MultiGP(kernel=kern, num_heads=G)
+        base = gp.init_params(device=dev)
+        per = [kernel_inputs(400, M, seed=11 + M + 100 * l, dev=dev) for l in range(L)]
+        # var_factor scaled so that quad stays below the prior and var off its floor
+        posts = [Posterior(x_tr=a[6], mask=a[9], alpha=a[7], var_factor=0.1 * a[8],
+                           norm=torch.ones(G, device=dev)) for a in per]
+        if shared:
+            lanes = [(base, posts[0])] * L
+            params, post = base, posts[0]
+        else:
+            # lengthscales differ per lane; the polynomial terms at 0.1 of
+            # their unit init, the scale of kernel_inputs
+            se, p1, p2 = base.kernel
+            small = lambda p: {"log_sigma_diag": p["log_sigma_diag"] + 0.5 * math.log(0.1)}
+            lanes = [(base._replace(kernel=(
+                dict(se, log_lengthscales=se["log_lengthscales"] + 0.1 * l), small(p1),
+                small(p2))), posts[l]) for l in range(L)]
+            params = tree_map(lambda *ts: torch.stack(ts), *(p for p, _ in lanes))
+            post = tree_map(lambda *ts: torch.stack(ts), *posts)
+        x_star = torch.stack([a[5] for a in per])
+        wk, wq = (torch.stack([(l + 1.0) * w for l in range(L)]) for w in cotangents(400, dev))
+
+        def fwd_bwd(fn, p, q, xs, a, b):
+            xs = xs.clone().requires_grad_(True)
+            mean, var = fn(p, q, xs)
+            g = torch.autograd.grad(torch.sum(a * mean) + torch.sum(b * var), xs)[0]
+            return mean.detach(), var.detach(), g
+
+        mean, var, g = fwd_bwd(gp.predict, params, post, x_star, wk, wq)
+        errs = [0.0, 0.0]
+        for l, (p, q) in enumerate(lanes):
+            m_r, v_r, g_r = fwd_bwd(gp._predict_plain, p, q, x_star[l], wk[l], wq[l])
+            torch.cuda.synchronize()
+            torch.testing.assert_close(mean[l], m_r, **FWD_TOL)
+            torch.testing.assert_close(var[l], v_r, **FWD_TOL)
+            torch.testing.assert_close(g[l], g_r, **GRAD_TOL)
+            errs = [max(errs[0], max_err(mean[l], m_r), max_err(var[l], v_r)),
+                    max(errs[1], max_err(g[l], g_r))]
+        worst = [max(w, e) for w, e in zip(worst, errs)]
+        print(f"  predict {label} L={L} P=400 M={M}: every lane against _predict_plain, max err "
+              f"mean/var {errs[0]:.3e}, x* gradient {errs[1]:.3e}", flush=True)
+    return tuple(worst)
 
 
 def time_predicts(dev):
@@ -320,7 +507,7 @@ def policy_step(agent, num_trials, T, fp, dev, expect_m=None):
     if expect_m is not None and M != expect_m:
         raise RuntimeError(f"expected the M={expect_m} bucket, got M={M}")
     check_real_posterior(agent.gp, agent.gp_params, agent.posterior, agent.gp_x, dev)
-    fp.launches.update(fwd=0, bwd=0)
+    fp.reset_launches()
     opt = agent.optimizer
     opt.optimize(prng.root_key(7), agent.policy_params, agent.gp_params, agent.posterior,
                  num_opt_steps=5, lr0=0.01, p_dropout0=0.25)
@@ -352,7 +539,7 @@ def learning_curve(agent, fp, steps=10):
     for name in ("kernel", "plain"):
         with (mock.patch.object(MultiGP, "predict", MultiGP._predict_plain) if name == "plain"
               else contextlib.nullcontext()):
-            fp.launches.update(fwd=0, bwd=0)
+            fp.reset_launches()
             res = agent.optimizer.optimize(prng.fold(prng.root_key(7), 2), agent.policy_params,
                                            agent.gp_params, agent.posterior,
                                            num_opt_steps=steps, lr0=0.01, p_dropout0=0.25)
@@ -374,7 +561,7 @@ def learning_curve(agent, fp, steps=10):
 def main_path(built, fp):
     """``reinforce`` of a freshly built agent; returns its kernel launches."""
     agent, kwargs = built
-    fp.launches.update(fwd=0, bwd=0)
+    fp.reset_launches()
     logs = agent.reinforce(**kwargs)
     torch.cuda.synchronize()
     launches = dict(fp.launches)
@@ -388,11 +575,218 @@ def main_path(built, fp):
     return launches
 
 
+def profile_steps(run, host_repeats=1):
+    """``run(n)`` runs an optimization of n steps (after its probe rollout)
+    and waits for the card.  Host ms/step from (run(11) - run(1)) / 10,
+    unprofiled, averaged over ``host_repeats`` (each in ``host_runs``);
+    device busy ms and device events per step, in all and per kernel name,
+    from torch.profiler's records over run(5) minus run(1); idle share
+    1 - busy / host."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run(1)
+    host_runs = []
+    for _ in range(host_repeats):
+        t0 = time.perf_counter()
+        run(1)
+        t1 = time.perf_counter()
+        run(11)
+        host_runs.append(1e3 * (time.perf_counter() - t1 - (t1 - t0)) / 10)
+    host = sum(host_runs) / host_repeats
+
+    def window(n):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(n)
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return sum(e.time_range.elapsed_us() for e in events), Counter(e.name for e in events)
+
+    (us1, c1), (us5, c5) = window(1), window(5)
+    busy = 1e-3 * (us5 - us1) / 4
+    if busy <= 0:
+        raise RuntimeError("torch.profiler recorded no device time for the optimizer steps")
+    by_kernel = {k: (c5[k] - c1[k]) / 4 for k in c5 | c1 if c5[k] != c1[k]}
+    return dict(host_ms=host, host_runs=host_runs, busy_ms=busy,
+                events=(c5.total() - c1.total()) / 4, idle=1.0 - busy / host,
+                events_by_kernel=dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])))
+
+
+def lane_runner(agent, keys, params, gp_params, post, trial_index):
+    def run(n):
+        agent.optimizer.optimize_lanes(keys, params, gp_params, post, n, 0.01, 0.25, trial_index)
+        torch.cuda.synchronize()
+    return run
+
+
+def farm_phase(fp, dev):
+    """Phase 7: the flagship seed farm at full width through ``SeedFarm.run``;
+    returns its kernel launches."""
+    from mcpilco_tpu_torch.models.gp import tree_map
+    from mcpilco_tpu_torch.parallel.multiseed import SeedFarm
+    from mcpilco_tpu_torch.scenarios import cartpole
+    from mcpilco_tpu_torch.utils import prng
+
+    S = FARM_SEEDS
+    cfg = cartpole.CartpoleConfig(seed=1, num_trials=2, opt_steps=(30, 30))
+    agent, kwargs = cartpole.build(cfg, dev)
+    farm = SeedFarm(agent, list(range(1, S + 1)),
+                    policy_init_fn=lambda k: cartpole.policy_init(cfg, agent.policy, k, dev))
+    fp.reset_launches()
+    t0 = time.perf_counter()
+    res = farm.run(**kwargs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, lanes = dict(fp.launches), dict(fp.launched_lanes)
+    if min(launches.values()) == 0 or any(lanes[k] != S * launches[k] for k in launches):
+        raise RuntimeError(f"the farm did not run K1/K2 with {S} lanes: launches {launches}, "
+                           f"lanes {lanes}")
+    for t, log in enumerate(res.trial_logs):
+        hist = [log.cost_history[i, : log.steps_done[i]] for i in range(S)]
+        if min(log.steps_done) == 0 or not all(np.all(np.isfinite(h)) for h in hist):
+            raise RuntimeError(f"farm trial {t}: steps {log.steps_done}, costs {hist}")
+        print(f"  farm trial {t}: steps {log.steps_done.tolist()}, last costs "
+              f"{[round(float(h[-1]), 4) for h in hist]}, mll {log.mll_last.round(2).tolist()}",
+              flush=True)
+    final = res.final_true
+    if any(np.allclose(final[i], final[j]) for i in range(S) for j in range(i)):
+        raise RuntimeError("two farmed seeds ended with the same trajectory")
+    print(f"  farm of {S} seeds, {len(res.trial_logs)} trials in {run_s:.1f} s; launches "
+          f"{launches}, lanes per launch {lanes['fwd'] // launches['fwd']}; blocks per launch "
+          f"at M={farm.posterior.x_tr.shape[1]}: "
+          f"{fp.launch_blocks(G, agent.optimizer.num_particles, farm.posterior.x_tr.shape[1], S)}",
+          flush=True)
+
+    # the farm's optimizer step against one seed's, on the last posterior
+    keys = [prng.fold(prng.stream(k, prng.STREAM_ROLLOUT), 1) for k in farm.keys]
+    one = lambda tree: tree_map(lambda t: t[0], tree)
+    farm_p = profile_steps(lane_runner(agent, keys, farm.policy_params, farm.gp_params,
+                                       farm.posterior, 1))
+    one_p = profile_steps(lane_runner(agent, keys[:1],
+                                      {k: v[:1] for k, v in farm.policy_params.items()},
+                                      one(farm.gp_params), one(farm.posterior), 1))
+    print(f"  farm step, S={S}: {farm_p['host_ms']:.2f} ms/step of all seeds against S x one "
+          f"seed's {S * one_p['host_ms']:.2f} (one seed {one_p['host_ms']:.2f}); device busy "
+          f"{farm_p['busy_ms']:.2f} ms/step (one seed {one_p['busy_ms']:.2f}); device events "
+          f"per step {farm_p['events']:.0f} (one seed {one_p['events']:.0f}); idle share "
+          f"{farm_p['idle']:.3f} (one seed {one_p['idle']:.3f})", flush=True)
+
+    # one seed's first 10 steps, farmed and trained alone
+    i = 1
+    alone, kw = cartpole.build(dataclasses.replace(cfg, seed=farm.seeds[i], num_trials=1,
+                                                   opt_steps=(10,)), dev)
+    alone.reinforce(**kw, verbose=False)
+    a = alone.trial_logs[0].cost_history
+    f = res.trial_logs[0].cost_history[i, :10]
+    gap = float(np.max(np.abs(f - a) / np.abs(a)))
+    print(f"  seed {farm.seeds[i]}, 10 steps of trial 0, farmed: {' '.join(f'{v:.4f}' for v in f)}",
+          flush=True)
+    print(f"  seed {farm.seeds[i]}, 10 steps of trial 0, alone:  {' '.join(f'{v:.4f}' for v in a)}"
+          f" (largest gap {gap:.2e} relative)", flush=True)
+    # the fits sum in another order when batched; 10 BPTT steps stay close
+    # (5.77e-05 on the H100, while two seeds' costs differ by ~4e-3)
+    if not gap < 1e-3:
+        raise RuntimeError(f"the farmed seed left the seed trained alone: gap {gap:.2e}")
+    return launches
+
+
+def restart_phase(fp, dev):
+    """Phase 8: a 1-trial 4PMS ``reinforce`` with two restart lanes."""
+    from mcpilco_tpu_torch.scenarios import cartpole_pms
+
+    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(50,), num_restarts=2)
+    agent, kwargs = cartpole_pms.build(cfg, dev)
+    launches = main_path((agent, kwargs), fp)
+    log = agent.trial_logs[-1]
+    costs = log.restart_costs
+    if costs is None or costs.shape != (2,) or not np.all(np.isfinite(costs)) or \
+            log.restart_winner != int(np.argmin(costs)):
+        raise RuntimeError(f"restart lanes: costs {costs}, winner {log.restart_winner}")
+    print(f"  restart lanes' best costs {costs.round(4).tolist()}, winner lane "
+          f"{log.restart_winner}; particles per launch {2 * agent.optimizer.num_particles} "
+          f"(the lanes share the posterior and fold into one K1/K2 call)", flush=True)
+    return launches
+
+
+def farm_sweep(fp, dev, sizes):
+    """The farm's optimizer step at the final-trial dataset size for each
+    seed count in ``sizes``."""
+    from mcpilco_tpu_torch.control.mc_pilco import ModelFitOptions
+    from mcpilco_tpu_torch.parallel.multiseed import SeedFarm
+    from mcpilco_tpu_torch.scenarios import cartpole
+    from mcpilco_tpu_torch.utils import prng
+
+    rows = []
+    for S in sizes:
+        t0 = time.perf_counter()
+        cfg = cartpole.CartpoleConfig(seed=1)
+        agent, _ = cartpole.build(cfg, dev)
+        farm = SeedFarm(agent, list(range(1, S + 1)),
+                        policy_init_fn=lambda k: cartpole.policy_init(cfg, agent.policy, k, dev))
+        for i in range(6):
+            farm.collect(cfg.T_exploration, trial_index=i, exploration=True)
+        t_fit = time.perf_counter()
+        farm.fit_model(ModelFitOptions(num_epochs=1501))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t_fit
+        keys = [prng.fold(prng.stream(k, prng.STREAM_ROLLOUT), 0) for k in farm.keys]
+        fp.reset_launches()
+        p = profile_steps(lane_runner(agent, keys, farm.policy_params, farm.gp_params,
+                                      farm.posterior, 0))
+        if fp.launched_lanes["fwd"] != S * fp.launches["fwd"] or fp.launches["fwd"] == 0:
+            raise RuntimeError(f"S={S}: K1 did not run with {S} lanes")
+        row = dict(S=S, N=int(farm.gp_x.shape[1]), M=int(farm.posterior.x_tr.shape[1]),
+                   fit_s=fit_s, **p)
+        rows.append(row)
+        print(f"  farm sweep S={S} N={row['N']} M={row['M']}: {p['host_ms']:.2f} ms/step of all "
+              f"seeds ({p['host_ms'] / S:.2f} ms/seed-step), device busy {p['busy_ms']:.2f} "
+              f"ms/step, device events per step {p['events']:.0f}, idle share {p['idle']:.3f}; "
+              f"fit {fit_s:.1f} s; {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"farm_sweep": rows}))
+
+
+def step_profile(root):
+    """The single-seed flagship step of the package under ``root``, through
+    ``cartpole.build``, ``collect``, ``fit_model`` and ``optimizer.optimize``."""
+    sys.path.insert(0, root)
+    from mcpilco_tpu_torch.control.mc_pilco import ModelFitOptions
+    from mcpilco_tpu_torch.scenarios import cartpole
+    from mcpilco_tpu_torch.utils import prng
+
+    dev = torch.device("cuda", 0)
+    agent, _ = cartpole.build(cartpole.CartpoleConfig(seed=1), dev)
+    for i in range(6):
+        agent.collect(3.0, trial_index=i, exploration=True)
+    agent.fit_model(ModelFitOptions(num_epochs=500))
+
+    def run(n):
+        agent.optimizer.optimize(prng.root_key(7), agent.policy_params, agent.gp_params,
+                                 agent.posterior, n, 0.01, 0.25)
+        torch.cuda.synchronize()
+
+    print(json.dumps(dict(root=root, M=int(agent.posterior.x_tr.shape[0]),
+                          **profile_steps(run, host_repeats=3))))
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--farm-sweep", default=None,
+                        help="comma-separated seed counts: profile the farm's step instead")
+    parser.add_argument("--step-profile", default=None, metavar="PATH",
+                        help="profile the single-seed step of the checkout at PATH instead")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's chip check has no CPU path",
               file=sys.stderr)
         return 1
+    if args.step_profile:
+        card_facts()
+        step_profile(args.step_profile)
+        device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                  "count": torch.cuda.device_count()}
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
     from mcpilco_tpu_torch import disable_tf32
     from mcpilco_tpu_torch.ops import fused_predict as fp
     from mcpilco_tpu_torch.scenarios import cartpole, cartpole_pms
@@ -407,6 +801,15 @@ def main():
         if any(w in line for w in ("registers", "spill", "Compiling")) or "error" in line.lower():
             print("  " + line.strip(), flush=True)
     phase(f"1 build ({path.name})", t0)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+
+    if args.farm_sweep:
+        t0 = time.perf_counter()
+        farm_sweep(fp, dev, [int(v) for v in args.farm_sweep.split(",")])
+        phase("farm sweep", t0)
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
 
     t0 = time.perf_counter()
     rec = check_kernels(fp, dev)
@@ -419,10 +822,10 @@ def main():
     phase("3 flagship policy-optimization step", t0)
 
     t0 = time.perf_counter()
-    cfg = cartpole.CartpoleConfig(seed=1, num_trials=2, opt_steps=(50, 50))
-    flagship_launches = main_path(cartpole.build(cfg, dev), fp)
-    cfg = cartpole.CartpoleConfig(seed=1, multi_init=True, num_trials=1, opt_steps=(30,))
-    multi_launches = main_path(cartpole.build(cfg, dev), fp)
+    cfg = cartpole.CartpoleConfig(seed=1, num_trials=2, opt_steps=(30, 30))
+    paths = [main_path(cartpole.build(cfg, dev), fp)]
+    cfg = cartpole.CartpoleConfig(seed=1, multi_init=True, num_trials=1, opt_steps=(20,))
+    paths.append(main_path(cartpole.build(cfg, dev), fp))
     phase("4 flagship main path: build + reinforce (2 trials; multi-init 1 trial)", t0)
 
     t0 = time.perf_counter()
@@ -431,26 +834,30 @@ def main():
     phase("5 4PMS policy-optimization step", t0)
 
     t0 = time.perf_counter()
-    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=2, opt_steps=(100, 100))
-    pms_launches = main_path(cartpole_pms.build(cfg, dev), fp)
+    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=2, opt_steps=(40, 40))
+    paths.append(main_path(cartpole_pms.build(cfg, dev), fp))
     phase("6 4PMS main path: build + reinforce (2 trials)", t0)
 
-    main_launches = {k: flagship_launches[k] + multi_launches[k] + pms_launches[k]
-                     for k in flagship_launches}
+    t0 = time.perf_counter()
+    paths.append(farm_phase(fp, dev))
+    phase(f"7 seed farm: {FARM_SEEDS} flagship seeds, 2 trials", t0)
+
+    t0 = time.perf_counter()
+    paths.append(restart_phase(fp, dev))
+    phase("8 restart lanes: 4PMS reinforce with num_restarts=2", t0)
+
     src = "mcpilco_tpu_torch/csrc/fused_predict.cu"
     kernels = [
         dict(name="fused_gram_contract (K1)", route="cuda", source=src,
-             replaces="mcpilco_tpu/ops/fused_predict.py:225", launches=main_launches["fwd"],
-             **rec["fwd"]),
+             replaces="mcpilco_tpu/ops/fused_predict.py:225",
+             launches=sum(p["fwd"] for p in paths), **rec["fwd"]),
         dict(name="fused_gram_contract_bwd_xstar (K2)", route="cuda", source=src,
-             replaces="mcpilco_tpu/ops/fused_predict.py:271", launches=main_launches["bwd"],
-             **rec["bwd"]),
+             replaces="mcpilco_tpu/ops/fused_predict.py:271",
+             launches=sum(p["bwd"] for p in paths), **rec["bwd"]),
     ]
-    if not all(math.isfinite(k["ms"]) for k in kernels):
+    if not all(math.isfinite(k["ms"]) and math.isfinite(k["bound_ms"]) for k in kernels):
         raise RuntimeError("kernel timing missing")
     print(json.dumps({"kernels": kernels}))
-    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-              "count": torch.cuda.device_count()}
     print(json.dumps({"ok": True, "device": device}))
     return 0
 

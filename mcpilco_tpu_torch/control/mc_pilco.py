@@ -55,6 +55,9 @@ class TrialLog:
     particles_inputs: np.ndarray
     reinit_count: int
     wall_clock_s: float
+    # with num_restarts > 1: each restart's winner metric, and the winner
+    restart_costs: Optional[np.ndarray] = None
+    restart_winner: Optional[int] = None
 
 
 class MCPilco:
@@ -205,7 +208,7 @@ class MCPilco:
         try:
             for scale in (1.0, 10.0, 100.0):
                 if scale > 1.0:
-                    self.gp = dataclasses.replace(gp0, jitter=gp0.jitter * scale)
+                    self.gp = gp0.scaled(scale)
                 post = self._build_posterior_once(data, info)
                 if all(bool(torch.all(torch.isfinite(l))) for l in post):
                     if scale > 1.0:
@@ -286,6 +289,9 @@ class MCPilco:
             trial_index=trial_index,
         )
         self.policy_params = result.policy_params
+        if result.restart_costs is not None:
+            rc = ", ".join(f"{float(v):.2f}" for v in result.restart_costs)
+            print(f"[mc-pilco] restarts: best costs [{rc}], winner lane {result.restart_winner}")
         steps = result.steps_done
         log = TrialLog(
             cost_history=result.cost_history.numpy()[:steps],
@@ -295,6 +301,8 @@ class MCPilco:
             particles_inputs=result.inputs.cpu().numpy(),
             reinit_count=result.reinit_count,
             wall_clock_s=time.time() - t0,
+            restart_costs=result.restart_costs,
+            restart_winner=result.restart_winner,
         )
         self.trial_logs.append(log)
         return log

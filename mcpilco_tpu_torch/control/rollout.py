@@ -14,6 +14,12 @@ Everything is differentiable w.r.t. the policy parameters (BPTT through the
 loop).  The rollout's random numbers are drawn up front, one tensor per
 stream, from generators seeded by the rollout key (:class:`RolloutNoise`);
 tests hand in their own draws instead.
+
+Lanes: with policy parameters [L, ...] and particles [L, P, ds], one
+rollout runs L independent optimizations at once (restart lanes, which
+share one posterior, or the seed farm's seeds, each with its own); the key
+is then a list of L keys, and each lane draws from its own generators
+exactly what a rollout of that lane alone would draw.
 """
 
 from __future__ import annotations
@@ -130,12 +136,36 @@ class RolloutNoise(NamedTuple):
            (read by the policy optimizer, not by ``simulate``);
     meas:  [T-1, P, n_pos] standard normals of the simulated position
            measurements (rollouts with sensors only), or None.
+    Lanes sit behind the time axis: state [T-1, L, P, G], init [L, P, ds].
     """
 
     state: torch.Tensor
     keep: Optional[torch.Tensor] = None
     init: Optional[torch.Tensor] = None
     meas: Optional[torch.Tensor] = None
+
+
+def stack_lanes(noises) -> RolloutNoise:
+    """One lane-batched :class:`RolloutNoise` from one per lane.  Where only
+    some lanes have dropout, the others keep every feature."""
+    keeps = [n.keep for n in noises]
+    if any(k is not None for k in keeps):
+        like = next(k for k in keeps if k is not None)
+        keeps = [torch.ones_like(like) if k is None else k for k in keeps]
+    stack = lambda ts, dim: None if ts[0] is None else torch.stack(ts, dim=dim)
+    return RolloutNoise(state=stack([n.state for n in noises], 1), keep=stack(keeps, 1),
+                        init=stack([n.init for n in noises], 0),
+                        meas=stack([n.meas for n in noises], 1))
+
+
+def _policy_rate(p_dropout, device):
+    """The policy's dropout argument: one rate, or a tensor [L] when the
+    lanes' rates (a sequence) differ."""
+    if not isinstance(p_dropout, (list, tuple)):
+        return p_dropout
+    if len(set(p_dropout)) == 1:
+        return float(p_dropout[0])
+    return torch.tensor(p_dropout, device=device)
 
 
 class _ClipBPTT(torch.autograd.Function):
@@ -170,9 +200,15 @@ class RolloutEngine:
     # per-particle state-cotangent norm cap applied once per step; None disables
     bptt_clip: Optional[float] = None
 
-    def draw_noise(self, key, num_particles: int, horizon: int, p_dropout: float, device,
+    def draw_noise(self, key, num_particles: int, horizon: int, p_dropout, device,
                    dtype=torch.float32) -> RolloutNoise:
-        """All random numbers of one rollout, one draw per stream."""
+        """All random numbers of one rollout, one draw per stream.  A list of
+        lane keys (and ``p_dropout`` one rate per lane, or one for all) draws
+        every lane from its own generators and stacks the lanes."""
+        if isinstance(key, list):
+            rates = p_dropout if isinstance(p_dropout, (list, tuple)) else [p_dropout] * len(key)
+            return stack_lanes([self.draw_noise(k, num_particles, horizon, p, device, dtype)
+                                for k, p in zip(key, rates)])
 
         def normals(tag, width):
             return torch.randn((horizon - 1, num_particles, width), dtype=dtype, device=device,
@@ -193,13 +229,19 @@ class RolloutEngine:
     def simulate(self, key, policy_params, gp_params, posterior: Posterior, s0: torch.Tensor,
                  horizon: int, p_dropout=0.0, particle_pred: bool = True,
                  noise: Optional[RolloutNoise] = None) -> RolloutResult:
-        """Roll ``s0`` [P, ds] forward ``horizon`` steps (step 0 = s0)."""
+        """Roll ``s0`` [P, ds] forward ``horizon`` steps (step 0 = s0).
+
+        Lanes: ``s0`` [L, P, ds] with policy parameters [L, ...], ``key`` a
+        list of L keys and ``p_dropout`` one rate or one per lane; states and
+        inputs come back as [T, L, P, ...].
+        """
         if noise is None:
-            noise = self.draw_noise(key, s0.shape[0], horizon, p_dropout, s0.device, s0.dtype)
+            noise = self.draw_noise(key, s0.shape[-2], horizon, p_dropout, s0.device, s0.dtype)
+        rate = _policy_rate(p_dropout, s0.device)
 
         def policy_at(s, t):
             keep = None if noise.keep is None else noise.keep[t]
-            return self.policy.apply(policy_params, s, t, p_dropout=p_dropout, keep=keep)
+            return self.policy.apply(policy_params, s, t, p_dropout=rate, keep=keep)
 
         if self.sensors is not None:
             return self._simulate_pms(policy_at, gp_params, posterior, s0, horizon,

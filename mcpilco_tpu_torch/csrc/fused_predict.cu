@@ -35,8 +35,16 @@
 //  - K2's epilogue recomputes k_se, a2, b2 per (particle, point) pair and
 //    reduces over the tile's points through shared memory.
 // Partial sums over column tiles (quad) and point tiles (dx*) are written
-// per tile and summed by the caller in a fixed order: the result is
-// deterministic and no atomics are used.  Every contraction is plain fp32
+// per tile and summed in a fixed order by sum_partials: the result is
+// deterministic and no atomics are used.
+//
+// Lane axis.  Every input and output may carry a leading lane axis L (one
+// posterior per seed of the seed farm): the grid's z runs over L * G
+// (lane, head) pairs.  Every per-head array is [L, G, ...] and contiguous,
+// so z indexes it as the head index did; x* and X_tr are [L, P, D] and
+// [L, M, D] and are offset by the lane z / G.  A block reads nothing of
+// another lane, and a lane's tiles and summation order do not depend on L:
+// lane l of a launch is bitwise equal to a launch on lane l alone.  Every contraction is plain fp32
 // FMA: TF32 and bf16 splits break the posterior algebra's cancellation
 // (RESULTS.md, "Pallas fused-predict A/B").
 
@@ -83,7 +91,7 @@ struct Args {
   const float* alpha;   // [G, M]
   const float* F;       // [G, M, M]
   const float* mask;    // [G, M]
-  int G, P, M, D;
+  int G, P, M, D;       // the per-head shapes; each array has L lanes of them in front
   bool vec;  // M % 4 == 0 and F (and kF) 16-byte aligned: 16-byte copies
 };
 
@@ -182,10 +190,13 @@ k1_forward(Args a, float* __restrict__ kalpha, float* __restrict__ qpart, float*
   __shared__ __align__(16) float ks[BK * BP];          // masked k chunk, transposed [kk][i]
   __shared__ float red[T];
 
+  // g: lane * G + head, the index of every per-head array
   const int M = a.M, D = a.D, P = a.P, g = blockIdx.z;
   const int nt = blockIdx.x, n0 = nt * BN, p0 = blockIdx.y * BP;
   const int tid = threadIdx.x, slice = tid / K1_TILE_T, t = tid % K1_TILE_T;
   const int tx = t % TX, ty = t / TX;
+  const float* xs = a.xs + (size_t)(g / a.G) * P * D;
+  const float* xt = a.xt + (size_t)(g / a.G) * M * D;
   const float* Fg = a.F + (size_t)g * M * M;
   const float* mg = a.mask + (size_t)g * M;
   const float* ag = a.alpha + (size_t)g * M;
@@ -199,7 +210,7 @@ k1_forward(Args a, float* __restrict__ kalpha, float* __restrict__ qpart, float*
     for (int e = tid; e < BK * D; e += T) {
       const int kk = e / D;
       const bool ok = m0 + kk < M;
-      cp_async4(&Xs[s][kk * DP + e - kk * D], ok ? a.xt + (size_t)m0 * D + e : a.xt, ok);
+      cp_async4(&Xs[s][kk * DP + e - kk * D], ok ? xt + (size_t)m0 * D + e : xt, ok);
     }
     for (int e = tid; e < 2 * BK; e += T) {
       const int kk = e % BK;
@@ -216,7 +227,7 @@ k1_forward(Args a, float* __restrict__ kalpha, float* __restrict__ qpart, float*
 #pragma unroll
   for (int c = 0; c < DP; ++c) {
     const bool in = c < D;
-    xi[c] = in && row_ok ? a.xs[(size_t)(p0 + gi) * D + c] : 0.f;
+    xi[c] = in && row_ok ? xs[(size_t)(p0 + gi) * D + c] : 0.f;
     w[c] = in ? a.se_w[g * D + c] : 0.f;
     if (POLY) {
       u1[c] = in ? a.poly1[g * (D + 1) + c] * xi[c] : 0.f;
@@ -349,10 +360,13 @@ k2_backward_xstar(Args a, const float* __restrict__ kf, const float* __restrict_
   __shared__ __align__(16) float ring[STAGES * STAGE];  // per stage: kF [BP][PITCH], F [BM][PITCH]
   __shared__ float xs[BP * DP], g1s[BP], g2s[BP], Xs[BM * DP], als[BM], mks[BM];
 
+  // g: lane * G + head, as in K1
   const int M = a.M, D = a.D, P = a.P, g = blockIdx.z;
   const int mt = blockIdx.x, m0 = mt * BM, p0 = blockIdx.y * BP;
   const int tid = threadIdx.x, slice = tid / K2_TILE_T, t = tid % K2_TILE_T;
   const int tx = t % TX, ty = t / TX;
+  const float* xsl = a.xs + (size_t)(g / a.G) * P * D;
+  const float* xtl = a.xt + (size_t)(g / a.G) * M * D;
   const float* Fg = a.F + (size_t)g * M * M;
   const float* kfg = kf + (size_t)g * P * M;
 
@@ -371,11 +385,11 @@ k2_backward_xstar(Args a, const float* __restrict__ kf, const float* __restrict_
   // the epilogue's operands, staged while the first chunks arrive
   for (int e = tid; e < BP * DP; e += T) {
     const int i = e / DP, c = e - i * DP;
-    xs[e] = p0 + i < P && c < D ? a.xs[(size_t)(p0 + i) * D + c] : 0.f;
+    xs[e] = p0 + i < P && c < D ? xsl[(size_t)(p0 + i) * D + c] : 0.f;
   }
   for (int e = tid; e < BM * DP; e += T) {
     const int m = e / DP, c = e - m * DP;
-    Xs[e] = m0 + m < M && c < D ? a.xt[(size_t)(m0 + m) * D + c] : 0.f;
+    Xs[e] = m0 + m < M && c < D ? xtl[(size_t)(m0 + m) * D + c] : 0.f;
   }
   for (int e = tid; e < BP; e += T) {
     const bool ok = p0 + e < P;
@@ -501,16 +515,34 @@ Args make_args(const float* se_w, const float* se_lam, const float* poly1, const
   return a;
 }
 
+// out[b, n] = sum over t of part[b, t, n], t in increasing order: one thread
+// per output, so the sum's order depends on nothing but T.
+__global__ void sum_partials(const float* __restrict__ part, float* __restrict__ out, int B, int T,
+                             int N) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)B * N) return;
+  const size_t b = i / N, n = i - b * N;
+  const float* p = part + b * T * N + n;
+  float s = 0.f;
+  for (int t = 0; t < T; ++t) s += p[(size_t)t * N];
+  out[i] = s;
+}
+
+void launch_sum(const float* part, float* out, int B, int T, int N, cudaStream_t s) {
+  const size_t n = (size_t)B * N;
+  sum_partials<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(part, out, B, T, N);
+}
+
 template <int DP, bool POLY>
-void launch_k1(const Args& a, float* kalpha, float* qpart, float* kf, cudaStream_t s) {
-  const dim3 grid((a.M + K1_BN - 1) / K1_BN, (a.P + K1_BP - 1) / K1_BP, a.G);
+void launch_k1(const Args& a, int L, float* kalpha, float* qpart, float* kf, cudaStream_t s) {
+  const dim3 grid((a.M + K1_BN - 1) / K1_BN, (a.P + K1_BP - 1) / K1_BP, L * a.G);
   k1_forward<DP, POLY><<<grid, K1_THREADS, 0, s>>>(a, kalpha, qpart, kf);
 }
 
 template <int DP, bool POLY>
-void launch_k2(const Args& a, const float* kf, const float* g1, const float* g2, float* dxp,
+void launch_k2(const Args& a, int L, const float* kf, const float* g1, const float* g2, float* dxp,
                cudaStream_t s) {
-  const dim3 grid((a.M + K2_BM - 1) / K2_BM, (a.P + K2_BP - 1) / K2_BP, a.G);
+  const dim3 grid((a.M + K2_BM - 1) / K2_BM, (a.P + K2_BP - 1) / K2_BP, L * a.G);
   k2_backward_xstar<DP, POLY><<<grid, K2_THREADS, 0, s>>>(a, kf, g1, g2, dxp);
 }
 
@@ -524,41 +556,51 @@ void fp_tiles(int* out) {
   out[0] = K1_BP; out[1] = K1_BN; out[2] = K2_BP; out[3] = K2_BM;
 }
 
-// K1.  qpart is [G, ceil(M / K1_BN), P]; kf [G, P, M] or null.  Returns a
-// cudaError_t: 0 when the launch was accepted.
+// K1 over L lanes, then the sum of quad's partials.  Every array has the
+// lane axis in front: kalpha and quad [L, G, P]; qpart, scratch for the
+// partials, [L, G, ceil(M / K1_BN), P]; kf [L, G, P, M] or null.  Returns a
+// cudaError_t: 0 when both launches were accepted.
 int fp_forward(const float* se_w, const float* se_lam, const float* poly1, const float* poly2a,
                const float* poly2b, const float* xs, const float* xt, const float* alpha,
-               const float* F, const float* mask, float* kalpha, float* qpart, float* kf, int G,
-               int P, int M, int D, int use_poly, int vec, void* stream) {
-  if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
+               const float* F, const float* mask, float* kalpha, float* qpart, float* quad,
+               float* kf, int L, int G, int P, int M, int D, int use_poly, int vec, void* stream) {
+  if (D < 1 || D > MAX_D || L < 1 || L * G > 65535) return (int)cudaErrorInvalidValue;
   const Args a = make_args(se_w, se_lam, poly1, poly2a, poly2b, xs, xt, alpha, F, mask, G, P, M, D, vec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 6) {
-    if (use_poly) launch_k1<6, true>(a, kalpha, qpart, kf, s);
-    else launch_k1<6, false>(a, kalpha, qpart, kf, s);
+    if (use_poly) launch_k1<6, true>(a, L, kalpha, qpart, kf, s);
+    else launch_k1<6, false>(a, L, kalpha, qpart, kf, s);
   } else {
-    if (use_poly) launch_k1<8, true>(a, kalpha, qpart, kf, s);
-    else launch_k1<8, false>(a, kalpha, qpart, kf, s);
+    if (use_poly) launch_k1<8, true>(a, L, kalpha, qpart, kf, s);
+    else launch_k1<8, false>(a, L, kalpha, qpart, kf, s);
   }
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  launch_sum(qpart, quad, L * G, (M + K1_BN - 1) / K1_BN, P, s);
   return (int)cudaGetLastError();
 }
 
-// K2.  kf is K1's [G, P, M]; dxp is [G, ceil(M / K2_BM), P, D].
+// K2 over L lanes, then the sum of its partials over heads and point tiles.
+// kf is K1's [L, G, P, M]; g1, g2 [L, G, P]; dxp, scratch,
+// [L, G, ceil(M / K2_BM), P, D]; dx [L, P, D].
 int fp_backward_xstar(const float* se_w, const float* se_lam, const float* poly1,
                       const float* poly2a, const float* poly2b, const float* xs,
                       const float* xt, const float* alpha, const float* F, const float* mask,
-                      const float* kf, const float* g1, const float* g2, float* dxp, int G, int P,
-                      int M, int D, int use_poly, int vec, void* stream) {
-  if (D < 1 || D > MAX_D) return (int)cudaErrorInvalidValue;
+                      const float* kf, const float* g1, const float* g2, float* dxp, float* dx,
+                      int L, int G, int P, int M, int D, int use_poly, int vec, void* stream) {
+  if (D < 1 || D > MAX_D || L < 1 || L * G > 65535) return (int)cudaErrorInvalidValue;
   const Args a = make_args(se_w, se_lam, poly1, poly2a, poly2b, xs, xt, alpha, F, mask, G, P, M, D, vec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 6) {
-    if (use_poly) launch_k2<6, true>(a, kf, g1, g2, dxp, s);
-    else launch_k2<6, false>(a, kf, g1, g2, dxp, s);
+    if (use_poly) launch_k2<6, true>(a, L, kf, g1, g2, dxp, s);
+    else launch_k2<6, false>(a, L, kf, g1, g2, dxp, s);
   } else {
-    if (use_poly) launch_k2<8, true>(a, kf, g1, g2, dxp, s);
-    else launch_k2<8, false>(a, kf, g1, g2, dxp, s);
+    if (use_poly) launch_k2<8, true>(a, L, kf, g1, g2, dxp, s);
+    else launch_k2<8, false>(a, L, kf, g1, g2, dxp, s);
   }
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  launch_sum(dxp, dx, L, G * ((M + K2_BM - 1) / K2_BM), P * D, s);
   return (int)cudaGetLastError();
 }
 

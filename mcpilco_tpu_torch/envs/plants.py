@@ -1,15 +1,16 @@
 """The "real system" protocol: plant rollouts that produce trial data.
 
 A plant exposes ``rollout(key, s0, policy, policy_params, T, dt, device)
--> TrialData``; the policy acts on *measured* states
-(``mcpilco_tpu/envs/plants.py``):
+-> TrialData``, on the card unless ``device`` says otherwise; the policy
+acts on *measured* states (``mcpilco_tpu/envs/plants.py``):
 
 - :class:`ODEPlant` adds Gaussian measurement noise on all dims;
 - :class:`PMSODEPlant` measures positions with noise and estimates
   velocities by causal differences and an online 1st-order Butterworth.
 
 The plant runs on ``device`` as a Python loop over control steps; it is not
-hot (one trial per policy optimization).  :func:`offline_velocity_estimation`
+hot (one trial per policy optimization).  :meth:`ODEPlant.rollout_lanes`
+rolls the trials of several seeds through one RK4 loop.  :func:`offline_velocity_estimation`
 is the host-side data prep of 4PMS model learning.
 """
 
@@ -57,22 +58,35 @@ class ODEPlant:
     def ode(self) -> Callable:
         return ode_mod.REGISTRY[self.ode_name]
 
-    @torch.no_grad()
     def rollout(self, key, s0, policy, policy_params, T: float, dt: float,
-                device="cpu") -> TrialData:
+                device="cuda") -> TrialData:
         """Simulate ``T`` seconds at sampling time ``dt`` (N = T/dt + 1 samples)."""
+        lanes = self.rollout_lanes([key], np.asarray(s0)[None], policy,
+                                   {k: v[None] for k, v in policy_params.items()}, T, dt, device)
+        return TrialData(*(a[0] for a in lanes))
+
+    @torch.no_grad()
+    def rollout_lanes(self, keys, s0, policy, policy_params, T: float, dt: float,
+                      device="cuda") -> TrialData:
+        """One trial for each of L seeds, integrated together: ``keys`` one
+        key per seed, ``s0`` [L, ds], ``policy_params`` [L, ...].  Each seed
+        draws its noise and actions from its own key exactly as
+        :meth:`rollout` does.  Returns arrays [L, N, ...]."""
         num_steps = int(round(T / dt))
         s = torch.as_tensor(np.asarray(s0), dtype=torch.float32, device=device)
         noise_std = torch.as_tensor(self.noise_std, dtype=s.dtype, device=device)
-        k_pol = prng.stream(key, prng.STREAM_EXPLORATION)
-        meas_noise = noise_std * torch.randn(
-            (num_steps + 1,) + tuple(s.shape), dtype=s.dtype, device=device,
-            generator=prng.generator(prng.stream(key, prng.STREAM_MEAS_NOISE), device),
-        )
+        k_pol = [prng.stream(k, prng.STREAM_EXPLORATION) for k in keys]
+        meas_noise = noise_std * torch.stack([
+            torch.randn((num_steps + 1, s.shape[-1]), dtype=s.dtype, device=device,
+                        generator=prng.generator(prng.stream(k, prng.STREAM_MEAS_NOISE), device))
+            for k in keys
+        ], dim=1)
+        lane = [{k: v[i] for k, v in policy_params.items()} for i in range(len(keys))]
         meas = s + meas_noise[0]
         states, measured, inputs = [s], [meas], []
         for i in range(num_steps + 1):
-            u = policy.apply(policy_params, meas[None, :], i, key=prng.fold(k_pol, i))[0]
+            u = torch.stack([policy.apply(lane[j], meas[j][None, :], i, key=prng.fold(k_pol[j], i))[0]
+                             for j in range(len(keys))])
             inputs.append(u)
             if i == num_steps:
                 break
@@ -80,9 +94,9 @@ class ODEPlant:
             meas = s + meas_noise[i + 1]
             states.append(s)
             measured.append(meas)
-        m = torch.stack(measured).cpu().numpy()
-        return TrialData(measured=m, inputs=torch.stack(inputs).cpu().numpy(),
-                         true=torch.stack(states).cpu().numpy(), noisy=m)
+        host = lambda xs: torch.stack(xs, dim=1).cpu().numpy()
+        m = host(measured)
+        return TrialData(measured=m, inputs=host(inputs), true=host(states), noisy=m)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +114,7 @@ class PMSODEPlant(ODEPlant):
             object.__setattr__(self, f, tuple(int(i) for i in np.asarray(getattr(self, f))))
 
     @torch.no_grad()
-    def rollout(self, key, s0, policy, policy_params, T: float, dt: float, device="cpu",
+    def rollout(self, key, s0, policy, policy_params, T: float, dt: float, device="cuda",
                 eps: Optional[torch.Tensor] = None) -> TrialData:
         """Simulate ``T`` seconds at sampling time ``dt`` (N = T/dt + 1
         samples).  ``eps`` [N-1, ds] replaces the standard-normal draws of

@@ -16,14 +16,15 @@ import torch
 
 
 def expected_cost(stage: torch.Tensor):
-    """Reduce [T, P] stage costs to (sum of means, sum of stds).
+    """Reduce [T, P] stage costs to (sum of means, sum of stds); [T, L, P]
+    stage costs of L lanes reduce per lane, to two [L] tensors.
 
     The particle std is the unbiased estimator (ddof=1) and is detached from
     the gradient, as in the reference.
     """
-    mean_t = torch.mean(stage, dim=1)
-    std_t = torch.std(stage, dim=1, correction=1)
-    return torch.sum(mean_t), torch.sum(std_t.detach())
+    mean_t = torch.mean(stage, dim=-1)
+    std_t = torch.std(stage, dim=-1, correction=1)
+    return torch.sum(mean_t, dim=0), torch.sum(std_t.detach(), dim=0)
 
 
 class CostBase:

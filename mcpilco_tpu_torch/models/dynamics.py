@@ -49,14 +49,15 @@ class DynamicsModel:
                           eps: Optional[torch.Tensor] = None):
         """Reparameterized next-state draw.
 
-        ``mean``/``var`` are [G, P] head outputs of ``MultiGP.predict``.  The
-        standard-normal draw ``eps`` [P, G] is taken from ``generator`` unless
-        given.  Returns (next state, mean [P, G], variance [P, G]).
+        ``mean``/``var`` are [G, P] head outputs of ``MultiGP.predict`` ([L, G,
+        P] for lanes).  The standard-normal draw ``eps`` [P, G] is taken from
+        ``generator`` unless given.  Returns (next state, mean [P, G],
+        variance [P, G]).
         """
-        mu = torch.movedim(mean, 0, -1)
+        mu = torch.movedim(mean, -2, -1)
         # the floor keeps d(sqrt)/d(var) finite where the clamped posterior
         # variance is exactly zero
-        sd = torch.sqrt(torch.movedim(var, 0, -1) + 1e-12)
+        sd = torch.sqrt(torch.movedim(var, -2, -1) + 1e-12)
         if particle_pred:
             if eps is None:
                 eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
@@ -118,8 +119,12 @@ class SpeedIntegration(DynamicsModel):
 
     def next_state(self, state, inp, delta):
         vel, pos = list(self.vel_indices), list(self.pos_indices)
-        v = state[..., vel]
+        # on [rows, ds]: with a leading axis of size 1 (one lane) the indexing
+        # backward would add two reductions per rollout step
+        shape = state.shape
+        state, delta = state.reshape(-1, shape[-1]), delta.reshape(-1, delta.shape[-1])
+        v = state[:, vel]
         nxt = state.clone()
-        nxt[..., vel] = v + delta
-        nxt[..., pos] = state[..., pos] + self.dt * v + 0.5 * self.dt * delta
-        return nxt
+        nxt[:, vel] = v + delta
+        nxt[:, pos] = state[:, pos] + self.dt * v + 0.5 * self.dt * delta
+        return nxt.reshape(shape)

@@ -13,6 +13,13 @@ Math (as in the JAX package):
 - Optional per-head max-abs output normalization, applied to both the fit
   and the posterior.
 
+Lanes: every tensor may carry leading lane axes in front of the head axis
+(the seed farm's seeds, the JAX package's ``vmap`` over ``fit`` and
+``posterior``): inputs x [*L, N, D], targets [*L, G, N], parameter leaves
+[*L, G, ...], and the lanes' fits, posteriors and predictions are again one
+set of batched ops.  Inputs get a head axis of 1 (``_hx``) before they meet
+the kernel algebra, so [*L, 1, N, D] broadcasts against [*L, G, ...].
+
 ``predict`` dispatches on the device: on the card, the flagship kernel
 structures run the fused CUDA kernels (``ops/fused_predict.py``); on the
 CPU, the plain batched ops below.
@@ -34,7 +41,8 @@ from . import kernels as K
 class GPData(NamedTuple):
     """Padded training set shared across heads.
 
-    x: [N_cap, D] inputs; y: [G, N_cap] per-head targets; mask: [N_cap].
+    x: [N_cap, D] inputs; y: [G, N_cap] per-head targets; mask: [N_cap]
+    (each with the lane axes in front, for lanes).
     """
 
     x: torch.Tensor
@@ -112,37 +120,52 @@ class MultiGP:
         return GPParams(kernel=self.kernel.param_mask(params.kernel),
                         log_sigma_n=self.train_sigma_n)
 
+    def scaled(self, jitter_scale: float) -> "MultiGP":
+        """The same GP with its relative jitter multiplied by ``jitter_scale``."""
+        return dataclasses.replace(self, jitter=self.jitter * jitter_scale)
+
     # ---------------- core math (all heads) ----------------
 
+    @staticmethod
+    def _hx(x):
+        """Inputs [*L, N, D] with a head axis: [*L, 1, N, D]."""
+        return x[..., None, :, :]
+
+    def _head_mask(self, mask):
+        """A dataset mask [*L, N] for every head: [*L, G, N]."""
+        return mask[..., None, :].expand(*mask.shape[:-1], self.num_heads, mask.shape[-1])
+
     def _noisy_gram(self, kparams, log_sigma_n, x, mask):
-        """K(x,x) + (sigma_n^2 + adaptive jitter) I: [G, N, N]."""
-        Kx = self.kernel.gram(kparams, x, x)
+        """K(x,x) + (sigma_n^2 + adaptive jitter) I: [*L, G, N, N]."""
+        Kx = self.kernel.gram(kparams, self._hx(x), self._hx(x))
         jit = linalg.adaptive_jitter(Kx, mask, rel=self.jitter, floor=self.jitter)
         noise = torch.exp(2.0 * log_sigma_n) + jit
         eye = torch.eye(x.shape[-2], dtype=x.dtype, device=x.device)
-        return Kx + noise[:, None, None] * eye
+        return Kx + noise[..., None, None] * eye
 
     def _mean(self, kparams, x):
-        m = self.kernel.mean(kparams, x)
-        return m.expand(self.num_heads, *m.shape[-1:])
+        """Prior mean at x [*L, N, D] for every head: [*L, G, N]."""
+        m = self.kernel.mean(kparams, self._hx(x))
+        return m.expand(*x.shape[:-2], self.num_heads, x.shape[-2])
 
     def mll(self, params: GPParams, data: GPData, norm: Optional[torch.Tensor] = None):
-        """Sum over heads of the negative marginal log-likelihood."""
+        """Sum over heads of the negative marginal log-likelihood; per lane
+        ([*L]) for lanes, as ``jax.vmap(mll)`` gives it."""
         if norm is None:
-            norm = torch.ones(self.num_heads, dtype=data.x.dtype, device=data.x.device)
-        mask = data.mask.expand(self.num_heads, -1)
+            norm = torch.ones(data.y.shape[:-1], dtype=data.x.dtype, device=data.x.device)
+        mask = self._head_mask(data.mask)
         Kn = self._noisy_gram(params.kernel, params.log_sigma_n, data.x, mask)
         L = linalg.masked_cholesky(Kn, mask)
-        resid = (data.y / norm[:, None] - self._mean(params.kernel, data.x)) * mask
+        resid = (data.y / norm[..., None] - self._mean(params.kernel, data.x)) * mask
         alpha = linalg.chol_solve(L, resid[..., None])[..., 0]
         logdet = linalg.masked_logdet_from_chol(L, mask)
-        return torch.sum(0.5 * (torch.sum(resid * alpha, dim=-1) + logdet))
+        return torch.sum(0.5 * (torch.sum(resid * alpha, dim=-1) + logdet), dim=-1)
 
     def output_norms(self, data: GPData) -> torch.Tensor:
-        """Per-head max-abs output normalizers."""
+        """Per-head max-abs output normalizers: [*L, G]."""
         if not self.normalize_outputs:
-            return torch.ones(self.num_heads, dtype=data.x.dtype, device=data.x.device)
-        m = torch.amax(torch.abs(data.y) * data.mask[None, :], dim=-1)
+            return torch.ones(data.y.shape[:-1], dtype=data.x.dtype, device=data.x.device)
+        m = torch.amax(torch.abs(data.y) * data.mask[..., None, :], dim=-1)
         return torch.clamp(m, min=torch.finfo(data.x.dtype).tiny)
 
     def fit(self, params: GPParams, data: GPData, num_epochs: int, learning_rate: float = 0.01):
@@ -154,39 +177,47 @@ class MultiGP:
         update is non-finite reverts params and optimizer state to the last
         iterate whose loss evaluated finite and halves the step scale, which
         recovers by 2^(1/50) per finite epoch.  A healthy fit keeps the scale
-        at exactly 1.
+        at exactly 1.  With lanes, the heads of all lanes take one batched
+        Adam step and the guard acts per lane, as ``jax.vmap(fit)`` does: a
+        non-finite epoch of one seed reverts that seed alone.
 
-        Returns (params, loss_history [num_epochs]).
+        Returns (params, loss_history [*L, num_epochs]).
         """
         norm = self.output_norms(data)
+        lanes = data.x.shape[:-2]
         trainable = [bool(m) for m in _leaves(self.param_mask(params))]
         idx = [i for i, t in enumerate(trainable) if t]
         opts = dict(dtype=data.x.dtype, device=data.x.device)
         p = [l.detach().clone() for l in _leaves(params)]
         # optimizer state: Adam moments of the trainable leaves and the count
         s = ([torch.zeros_like(p[i]) for i in idx], [torch.zeros_like(p[i]) for i in idx],
-             torch.zeros((), **opts))
+             torch.zeros(lanes, **opts))
         good_p, good_s = p, s
-        lr_scale = torch.ones((), **opts)
-        last_loss = torch.full((), math.inf, **opts)
+        lr_scale = torch.ones(lanes, **opts)
+        last_loss = torch.full(lanes, math.inf, **opts)
         recover = 2.0 ** (1.0 / 50.0)
         b1, b2, eps = 0.9, 0.999, 1e-8
         history = []
+
+        def per_lane(t, leaf):
+            """A per-lane value [*L] broadcast against a leaf [*L, ...]."""
+            return t.reshape(t.shape + (1,) * (leaf.dim() - t.dim()))
+
         for _ in range(num_epochs):
             cur = [t.detach().requires_grad_(tr) for t, tr in zip(p, trainable)]
-            loss = self.mll(_unflatten(params, cur), data, norm)
-            grads = torch.autograd.grad(loss, [cur[i] for i in idx])
+            loss = self.mll(_unflatten(params, cur), data, norm)  # [*L]
+            grads = torch.autograd.grad(loss.sum(), [cur[i] for i in idx])
             with torch.no_grad():
                 mu, nu, count = s
                 cnt = count + 1
                 mu_n = [b1 * m + (1 - b1) * g for m, g in zip(mu, grads)]
                 nu_n = [b2 * v + (1 - b2) * g * g for v, g in zip(nu, grads)]
                 bc1, bc2 = 1 - b1**cnt, 1 - b2**cnt
-                upd = [-learning_rate * (m / bc1) / (torch.sqrt(v / bc2) + eps) * lr_scale
-                       for m, v in zip(mu_n, nu_n)]
+                upd = [-learning_rate * (m / per_lane(bc1, m)) / (torch.sqrt(v / per_lane(bc2, v)) + eps)
+                       * per_lane(lr_scale, m) for m, v in zip(mu_n, nu_n)]
                 finite = torch.isfinite(loss)
                 for u in upd:
-                    finite = finite & torch.all(torch.isfinite(u))
+                    finite = finite & torch.all(torch.isfinite(u).flatten(len(lanes)), dim=-1)
                 p_cur = [t.detach() for t in cur]
                 p_new = list(p_cur)
                 for j, i in enumerate(idx):
@@ -194,7 +225,7 @@ class MultiGP:
                 s_new = (mu_n, nu_n, cnt)
 
                 def sel(new, old):
-                    return tree_map(lambda a, b: torch.where(finite, a, b), new, old)
+                    return tree_map(lambda a, b: torch.where(per_lane(finite, a), a, b), new, old)
 
                 # finite: advance, and the current iterate becomes last-good;
                 # non-finite: back to last-good params AND state
@@ -204,46 +235,60 @@ class MultiGP:
                                        lr_scale * 0.5)
                 last_loss = torch.where(finite, loss, last_loss)
                 history.append(last_loss)
-        return _unflatten(params, p), torch.stack(history)
+        return _unflatten(params, p), torch.stack(history, dim=-1)
 
     def posterior(self, params: GPParams, x_tr, mask, y) -> Posterior:
         """Build the cached posterior in factor form F = L^-T.
-        ``x_tr``: [M, D] shared; ``mask``: [G, M]; ``y``: [G, M]."""
+        ``x_tr``: [*L, M, D] shared by the heads; ``mask``: [*L, G, M];
+        ``y``: [*L, G, M]."""
         if self.normalize_outputs:
             norm = torch.clamp(torch.amax(torch.abs(y) * mask, dim=-1),
                                min=torch.finfo(y.dtype).tiny)
         else:
-            norm = torch.ones(self.num_heads, dtype=y.dtype, device=y.device)
+            norm = torch.ones(y.shape[:-1], dtype=y.dtype, device=y.device)
         Kn = self._noisy_gram(params.kernel, params.log_sigma_n, x_tr, mask)
         L = linalg.masked_cholesky(Kn, mask)
-        resid = (y / norm[:, None] - self._mean(params.kernel, x_tr)) * mask
+        resid = (y / norm[..., None] - self._mean(params.kernel, x_tr)) * mask
         alpha = linalg.chol_solve(L, resid[..., None])[..., 0] * mask
         eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
         F = torch.linalg.solve_triangular(L, eye, upper=False).mT
-        F = F * (mask[:, :, None] * mask[:, None, :])
+        F = F * (mask[..., :, None] * mask[..., None, :])
         return Posterior(x_tr=x_tr, mask=mask, alpha=alpha, var_factor=F, norm=norm)
 
     def fit_posterior(self, params: GPParams, data: GPData) -> Posterior:
         """Posterior over the full (shared) dataset."""
-        mask = data.mask.expand(self.num_heads, -1)
-        return self.posterior(params, data.x, mask, data.y)
+        return self.posterior(params, data.x, self._head_mask(data.mask).contiguous(), data.y)
 
     # ---------------- prediction ----------------
 
     def predict(self, params: GPParams, post: Posterior, x_star: torch.Tensor):
         """Posterior (mean, var) at ``x_star`` [P, D] for all heads: [G, P] each.
 
-        On the card, the 'se' and 'se+p2' structures run the fused kernels;
-        every other case, and every CPU tensor, runs the plain batched ops.
+        ``x_star`` [*L, P, D] with a lane posterior (lanes in front of every
+        leaf) gives [*L, G, P].  ``x_star`` [R, P, D] against a posterior
+        without lanes (restart lanes, which share one posterior) is folded
+        into R * P particles of one call and returns [R, G, P].  On the card,
+        the 'se' and 'se+p2' structures run the fused kernels; every other
+        case, and every CPU tensor, runs the plain batched ops.
         """
+        fold = x_star.dim() - post.x_tr.dim()
+        if fold:
+            if post.x_tr.dim() != 2 or fold != 1:
+                raise ValueError(f"x_star {tuple(x_star.shape)} does not match the posterior's "
+                                 f"x_tr {tuple(post.x_tr.shape)}")
+            R, P, D = x_star.shape
+            mean, var = self.predict(params, post, x_star.reshape(R * P, D))
+            unfold = lambda t: t.reshape(-1, R, P).transpose(0, 1)
+            return unfold(mean), unfold(var)
         if x_star.is_cuda and self._fused_structure() is not None:
             return self._predict_fused(params, post, x_star)
         return self._predict_plain(params, post, x_star)
 
     def _predict_plain(self, params: GPParams, post: Posterior, x_star):
         kp = params.kernel
-        k_star = self.kernel.gram(kp, x_star, post.x_tr) * post.mask[:, None, :]  # [G, P, M]
-        mean = self._mean(kp, x_star) + torch.einsum("gpm,gm->gp", k_star, post.alpha)
+        k_star = self.kernel.gram(kp, self._hx(x_star), self._hx(post.x_tr))
+        k_star = k_star * post.mask[..., None, :]  # [*L, G, P, M]
+        mean = self._mean(kp, x_star) + torch.einsum("...gpm,...gm->...gp", k_star, post.alpha)
         kf = torch.matmul(k_star, post.var_factor)
         quad = torch.sum(kf * kf, dim=-1)
         return self._epilogue(kp, post, x_star, mean, quad)
@@ -252,9 +297,9 @@ class MultiGP:
         # floor at jitter * prior diag, not 0: near interpolation the true
         # variance is ~0 and d(sqrt(var))/d(var) would amplify fp32 roundoff
         # in BPTT (mcpilco_tpu/models/gp.py:230-236)
-        diag = self.kernel.diag(kp, x_star).expand_as(quad)
+        diag = self.kernel.diag(kp, self._hx(x_star)).expand_as(quad)
         var = torch.maximum(diag - quad, self.jitter * diag)
-        return mean * post.norm[:, None], var * (post.norm**2)[:, None]
+        return mean * post.norm[..., None], var * (post.norm**2)[..., None]
 
     def _fused_structure(self):
         """'se' | 'se+p2' | None: does the kernel match a fused structure
@@ -288,20 +333,22 @@ class MultiGP:
         add the prior mean, take diag - quad, floor and rescale."""
         structure = self._fused_structure()
         kp = params.kernel
-        G, dt, dev = self.num_heads, x_star.dtype, x_star.device
+        dt, dev = x_star.dtype, x_star.device
         if structure == "se":
             se = kp
+            heads = se["log_lengthscales"].shape[:-1]  # [*L, G]
             d = se["log_lengthscales"].shape[-1]
-            poly1 = torch.zeros((G, d + 1), dtype=dt, device=dev)
-            poly2a = torch.zeros((G, d), dtype=dt, device=dev)
-            poly2b = torch.zeros((G, d), dtype=dt, device=dev)
+            poly1 = torch.zeros((*heads, d + 1), dtype=dt, device=dev)
+            poly2a = torch.zeros((*heads, d), dtype=dt, device=dev)
+            poly2b = torch.zeros((*heads, d), dtype=dt, device=dev)
         else:
             se = kp[0]
-            poly1 = torch.exp(2.0 * kp[1]["log_sigma_diag"][:, 0, :])
-            poly2a = torch.exp(2.0 * kp[2]["log_sigma_diag"][:, 0, :])
-            poly2b = torch.exp(2.0 * kp[2]["log_sigma_diag"][:, 1, :])
+            heads = se["log_lengthscales"].shape[:-1]
+            poly1 = torch.exp(2.0 * kp[1]["log_sigma_diag"][..., 0, :])
+            poly2a = torch.exp(2.0 * kp[2]["log_sigma_diag"][..., 0, :])
+            poly2b = torch.exp(2.0 * kp[2]["log_sigma_diag"][..., 1, :])
         se_w = torch.exp(-2.0 * se["log_lengthscales"])
-        se_lam = torch.exp(se["log_lambda"]).reshape(G)
+        se_lam = torch.exp(se["log_lambda"]).reshape(heads)
         kalpha, quad = fp.gram_contract(
             se_w, se_lam, poly1, poly2a, poly2b, x_star, post.x_tr, post.alpha,
             post.var_factor, post.mask, structure == "se+p2",
@@ -313,3 +360,20 @@ class MultiGP:
 def _unflatten(structure, leaves):
     it = iter(leaves)
     return tree_map(lambda _: next(it), structure)
+
+
+def first_finite(posteriors):
+    """Per lane, the first posterior of ``posteriors`` whose every leaf is
+    finite, else the last one (the escalation of
+    ``mcpilco_tpu/parallel/multiseed.py:318-355``, without a host sync).
+    The posteriors have lanes [L] in front of every leaf and equal shapes."""
+
+    def finite(post):
+        return torch.stack([torch.isfinite(t).flatten(1).all(-1) for t in post]).all(0)  # [L]
+
+    out = posteriors[-1]
+    for post in reversed(posteriors[:-1]):
+        ok = finite(post)
+        out = Posterior(*(torch.where(ok.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+                          for a, b in zip(post, out)))
+    return out

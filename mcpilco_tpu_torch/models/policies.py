@@ -8,6 +8,10 @@ Every policy is a static config object with (``mcpilco_tpu/models/policies.py``)
   and ``states``.  ``key`` is a ``utils.prng`` key; ``keep`` is an optional
   dropout keep-mask that replaces the draw, so tests can share it.
 - ``param_mask(params)`` and ``reinit(params, key)``.
+
+Lanes (restart lanes, the seed farm's seeds): :class:`SumOfGaussians` takes
+parameters with a leading lane axis [L, ...] and states [L, P, ds], a
+dropout rate per lane, and ``reinit`` with one key per lane.
 """
 
 from __future__ import annotations
@@ -178,7 +182,12 @@ class SumOfGaussians(PolicyBase):
 
     def reinit(self, params, key):
         """Randomized re-init on NaN: centers ~ c*2(U-.5), weight ~ w*(U-.5),
-        lengthscales reset to the configured values."""
+        lengthscales reset to the configured values.  Lane params [L, ...]
+        take a sequence of L keys, each lane drawing from its own."""
+        if params["centers"].dim() == 3:
+            lanes = [self.reinit({k: v[i] for k, v in params.items()}, k_i)
+                     for i, k_i in enumerate(key)]
+            return {k: torch.stack([p[k] for p in lanes]) for k in params}
         c = params["centers"]
         opts = dict(dtype=c.dtype, device=c.device)
         gen = prng.generator(key, c.device)
@@ -205,11 +214,11 @@ class SumOfGaussians(PolicyBase):
         if self.scale_factor is not None:
             policy_in = policy_in / torch.as_tensor(self.scale_factor, dtype=policy_in.dtype,
                                                     device=policy_in.device)
-        ls = torch.exp(params["log_lengthscales"])
+        ls = torch.exp(params["log_lengthscales"])[..., None, :]  # [*L, 1, nf]
         s = policy_in / ls
         c = params["centers"] / ls
         # direct differences: cancellation-free (see kernels.sq_dist)
-        diff = s[..., :, None, :] - c[None, :, :]
+        diff = s[..., :, None, :] - c[..., None, :, :]
         return torch.exp(-torch.sum(diff * diff, dim=-1))
 
     def _policy_input(self, states, t):
@@ -221,16 +230,21 @@ class SumOfGaussians(PolicyBase):
         return torch.rand(shape, generator=gen, device=device) < max(1.0 - p_dropout, 1e-6)
 
     def apply(self, params, states, t, key=None, p_dropout=0.0, keep=None):
+        """``p_dropout`` is one rate, or a tensor [L] of one rate per lane,
+        which needs ``keep`` (lanes at rate 0 keep every feature)."""
         feats = self.features(params, self._policy_input(states, t))
-        p = float(p_dropout)
-        if p > 0 and (key is not None or keep is not None):
+        if torch.is_tensor(p_dropout):
+            keep_prob = torch.clamp(1.0 - p_dropout, min=1e-6)
+            feats = feats * keep.to(feats.dtype) / keep_prob.reshape((-1,) + (1,) * (feats.dim() - 1))
+        elif p_dropout > 0 and (key is not None or keep is not None):
+            p = float(p_dropout)
             if keep is None:
                 keep = self.dropout_keep(key, feats.shape, p, feats.device)
             # inverted dropout: rescale the kept features by 1 / keep-prob
             feats = feats * keep.to(feats.dtype) / max(1.0 - p, 1e-6)
-        u = torch.matmul(feats, params["weight"].T)
+        u = torch.matmul(feats, params["weight"].mT)
         if "bias" in params:
-            u = u + params["bias"]
+            u = u + params["bias"][..., None, :]
         return squash(u, self.u_max) if self.squash_output else u
 
 

@@ -46,26 +46,29 @@ def select(gp: MultiGP, config: SODConfig, params: GPParams, x: torch.Tensor,
     """Per-head SOD selection masks [G, N] over the shared dataset, visiting
     candidates in index order (sample 0 seeds every subset).
 
-    ``x``: [N, D] padded inputs; ``y``: [G, N]; ``valid_mask``: [N].
+    ``x``: [N, D] padded inputs; ``y``: [G, N]; ``valid_mask``: [N]; each with
+    the lane axes in front for lanes, which are selected by one batched
+    loop.
     """
     if config.permutation:
         raise NotImplementedError("SOD with a random candidate order is not ported yet")
-    n = x.shape[0]
-    G = gp.num_heads
+    n = x.shape[-2]
+    heads = params.log_sigma_n.shape  # [*L, G]
     kp = params.kernel
     eye = torch.eye(n, dtype=x.dtype, device=x.device)
-    noise = torch.exp(2.0 * params.log_sigma_n)  # [G]
+    noise = torch.exp(2.0 * params.log_sigma_n)  # [*L, G]
     thr = config.thresholds(gp, params)
-    Kx = gp.kernel.gram(kp, x, x)  # [G, N, N], hoisted out of the loop
-    prior = gp.kernel.diag(kp, x).expand(G, n)  # [G, N]
-    sel = torch.zeros((G, n), dtype=x.dtype, device=x.device)
-    sel[:, 0] = valid_mask[0]
+    hx = MultiGP._hx(x)
+    Kx = gp.kernel.gram(kp, hx, hx)  # [*L, G, N, N], hoisted out of the loop
+    prior = gp.kernel.diag(kp, hx).expand(*heads, n)  # [*L, G, N]
+    sel = torch.zeros((*heads, n), dtype=x.dtype, device=x.device)
+    sel[..., 0] = valid_mask[..., None, 0]
     for idx in range(1, n):
         jit = linalg.adaptive_jitter(Kx, sel, rel=gp.jitter, floor=gp.jitter)
-        L = linalg.masked_cholesky(Kx + (noise + jit)[:, None, None] * eye, sel)
-        k_vec = Kx[:, :, idx] * sel  # k(x_sel, x_idx)
+        L = linalg.masked_cholesky(Kx + (noise + jit)[..., None, None] * eye, sel)
+        k_vec = Kx[..., idx] * sel  # k(x_sel, x_idx)
         w = linalg.chol_solve(L, k_vec[..., None])[..., 0] * sel
-        var = prior[:, idx] - torch.sum(k_vec * w, dim=-1)
-        keep = (torch.sqrt(torch.clamp(var, min=0.0)) > thr) & (valid_mask[idx] > 0)
-        sel[:, idx] = torch.where(keep, torch.ones_like(thr), sel[:, idx])
+        var = prior[..., idx] - torch.sum(k_vec * w, dim=-1)
+        keep = (torch.sqrt(torch.clamp(var, min=0.0)) > thr) & (valid_mask[..., None, idx] > 0)
+        sel[..., idx] = torch.where(keep, torch.ones_like(var), sel[..., idx])
     return sel

@@ -17,6 +17,11 @@ plain PyTorch versions, :func:`reference_gram_contract` and
 :func:`reference_gram_contract_bwd_xstar`, which are also the oracles the
 kernels are held against on the card.
 
+Every function takes an optional leading lane axis L on all of its
+arguments (one posterior per seed of the seed farm, the JAX package's
+``vmap`` over seeds): x_star [L, P, D], x_tr [L, M, D], se_w [L, G, D], ...,
+and returns [L, G, P] / [L, P, D].  Without it, the inputs are one lane.
+
 The kernels are built from the checkout's sources with ``nvcc`` for
 ``sm_90a`` at first use, into ``mcpilco_tpu_torch/_build/``, and bound
 through ``ctypes`` with a plain C interface.
@@ -38,8 +43,15 @@ SOURCE = _PKG / "csrc" / "fused_predict.cu"
 BUILD_DIR = _PKG / "_build"
 MAX_D = 8  # input dims the kernels take (csrc MAX_D)
 
-# Kernel launches by the wrappers below, one per launch.
+# Kernel launches by the wrappers below, one per launch, and the lanes those
+# launches carried (L per launch).
 launches = {"fwd": 0, "bwd": 0}
+launched_lanes = {"fwd": 0, "bwd": 0}
+
+
+def reset_launches() -> None:
+    for counts in (launches, launched_lanes):
+        counts.update(fwd=0, bwd=0)
 
 _lib = None
 _tiles = None  # (K1 particles, K1 columns of F, K2 particles, K2 training points) per block
@@ -81,9 +93,9 @@ def bind(path):
     global _lib, _tiles
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fp_forward.argtypes = [ptr] * 13 + [i32] * 6 + [ptr]
+    lib.fp_forward.argtypes = [ptr] * 14 + [i32] * 7 + [ptr]
     lib.fp_forward.restype = i32
-    lib.fp_backward_xstar.argtypes = [ptr] * 14 + [i32] * 6 + [ptr]
+    lib.fp_backward_xstar.argtypes = [ptr] * 15 + [i32] * 7 + [ptr]
     lib.fp_backward_xstar.restype = i32
     lib.fp_error_string.argtypes = [i32]
     lib.fp_error_string.restype = ctypes.c_char_p
@@ -101,11 +113,12 @@ def _library():
     return _lib
 
 
-def launch_blocks(G: int, P: int, M: int):
-    """Blocks per launch of (K1, K2) at these shapes."""
+def launch_blocks(G: int, P: int, M: int, L: int = 1):
+    """Blocks per launch of (K1, K2) at these shapes, over L lanes."""
     _library()
     k1_bp, k1_bn, k2_bp, k2_bm = _tiles
-    return G * -(-P // k1_bp) * -(-M // k1_bn), G * -(-P // k2_bp) * -(-M // k2_bm)
+    return (L * G * -(-P // k1_bp) * -(-M // k1_bn),
+            L * G * -(-P // k2_bp) * -(-M // k2_bm))
 
 
 def _check_launch(lib, err: int, name: str) -> None:
@@ -131,18 +144,30 @@ def _validate(tensors, shapes, device):
 
 
 def _shapes(se_w, x_star, x_tr):
-    G, D = se_w.shape
-    P, M = x_star.shape[0], x_tr.shape[0]
+    L, G, D = se_w.shape
+    P, M = x_star.shape[1], x_tr.shape[1]
     if P == 0 or M == 0:
         raise ValueError("the kernels need at least one particle and one training point")
     if D > MAX_D:
         raise ValueError(f"the kernels take at most {MAX_D} input dims, got {D}")
-    return G, P, M, D, [(G, D), (G,), (G, D + 1), (G, D), (G, D), (P, D), (M, D), (G, M),
-                        (G, M, M), (G, M), (G, P, M), (G, P), (G, P)]
+    if L * G > 65535:
+        raise ValueError(f"the kernels take at most 65535 (lane, head) pairs, got {L * G}")
+    shapes = [(G, D), (G,), (G, D + 1), (G, D), (G, D), (P, D), (M, D), (G, M), (G, M, M),
+              (G, M), (G, P, M), (G, P), (G, P)]
+    return L, G, P, M, D, [(L, *s) for s in shapes]
+
+
+def _as_lanes(tensors):
+    """(lane-batched tensors, whether the caller gave one lane without the
+    axis): x_star [P, D] marks a call without a lane axis."""
+    one = tensors[5].dim() == 2
+    return [t.unsqueeze(0) for t in tensors] if one else list(tensors), one
 
 
 def _vec(M, *tensors) -> int:
-    """1 when F's and kF's rows can be copied 16 bytes at a time."""
+    """1 when F's and kF's rows can be copied 16 bytes at a time: M % 4 == 0
+    makes every row, head and lane stride (M, M^2, P M floats) a multiple of
+    4 floats, so 16-byte-aligned base pointers keep every row aligned."""
     return int(M % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors if t is not None))
 
 
@@ -153,74 +178,86 @@ def _stream(device):
 def fused_gram_contract(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, var_factor,
                         mask, use_poly: bool, return_kf: bool = False):
     """K1 on the card: returns (kalpha [G, P], quad [G, P]), and kF [G, P, M]
-    too when ``return_kf``.
+    too when ``return_kf``; each with the lane axis in front when the
+    inputs have one.
 
     se_w [G, D] inverse squared lengthscales; se_lam [G] outputscales;
     poly1 [G, D+1], poly2a/b [G, D]; x_star [P, D]; x_tr [M, D];
     alpha [G, M]; var_factor [G, M, M] (F); mask [G, M].  The kernel writes
-    quad's partial sums per tile of F's columns; they are summed here.
+    quad's partial sums per tile of F's columns, and a second kernel sums
+    them in a fixed order.
     """
-    args = (se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, var_factor, mask)
-    G, P, M, D, shapes = _shapes(se_w, x_star, x_tr)
-    _validate(args, shapes, x_star.device)
+    args, one = _as_lanes((se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha,
+                           var_factor, mask))
+    L, G, P, M, D, shapes = _shapes(args[0], args[5], args[6])
+    dev = x_star.device
+    _validate(args, shapes, dev)
     lib = _library()
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=x_star.device)
-    kalpha, qpart = new(G, P), new(G, -(-M // _tiles[1]), P)
-    kf = new(G, P, M) if return_kf else None
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    kalpha, quad, qpart = new(L, G, P), new(L, G, P), new(L, G, -(-M // _tiles[1]), P)
+    kf = new(L, G, P, M) if return_kf else None
     err = lib.fp_forward(
-        *(t.data_ptr() for t in args), kalpha.data_ptr(), qpart.data_ptr(),
-        None if kf is None else kf.data_ptr(), G, P, M, D, int(bool(use_poly)),
-        _vec(M, var_factor, kf), _stream(x_star.device),
+        *(t.data_ptr() for t in args), kalpha.data_ptr(), qpart.data_ptr(), quad.data_ptr(),
+        None if kf is None else kf.data_ptr(), L, G, P, M, D, int(bool(use_poly)),
+        _vec(M, args[8], kf), _stream(dev),
     )
     _check_launch(lib, err, "fp_forward")
     launches["fwd"] += 1
-    quad = qpart.sum(dim=1)
-    return (kalpha, quad, kf) if return_kf else (kalpha, quad)
+    launched_lanes["fwd"] += L
+    out = (kalpha, quad, kf) if return_kf else (kalpha, quad)
+    return tuple(t[0] for t in out) if one else out
 
 
 def fused_gram_contract_bwd_xstar(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha,
                                   var_factor, mask, kf, g1, g2, use_poly: bool):
     """K2 on the card: d(loss)/d(x_star) [P, D] for cotangents g1, g2 [G, P]
-    of (kalpha, quad), from K1's kF [G, P, M].  The kernel writes partials
-    per head and per tile of training points; they are summed here."""
-    args = (se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, var_factor, mask, kf,
-            g1, g2)
-    G, P, M, D, shapes = _shapes(se_w, x_star, x_tr)
-    _validate(args, shapes, x_star.device)
+    of (kalpha, quad), from K1's kF [G, P, M]; lane axis in front as in
+    :func:`fused_gram_contract`.  The kernel writes partials per head and
+    per tile of training points; a second kernel sums them in a fixed
+    order."""
+    args, one = _as_lanes((se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha,
+                           var_factor, mask, kf, g1, g2))
+    L, G, P, M, D, shapes = _shapes(args[0], args[5], args[6])
+    dev = x_star.device
+    _validate(args, shapes, dev)
     lib = _library()
-    dxp = torch.empty((G, -(-M // _tiles[3]), P, D), dtype=torch.float32, device=x_star.device)
+    dxp = torch.empty((L, G, -(-M // _tiles[3]), P, D), dtype=torch.float32, device=dev)
+    dx = torch.empty((L, P, D), dtype=torch.float32, device=dev)
     err = lib.fp_backward_xstar(
-        *(t.data_ptr() for t in args), dxp.data_ptr(), G, P, M, D, int(bool(use_poly)),
-        _vec(M, var_factor, kf), _stream(x_star.device),
+        *(t.data_ptr() for t in args), dxp.data_ptr(), dx.data_ptr(), L, G, P, M, D,
+        int(bool(use_poly)), _vec(M, args[8], args[10]), _stream(dev),
     )
     _check_launch(lib, err, "fp_backward_xstar")
     launches["bwd"] += 1
-    return dxp.sum(dim=(0, 1))
+    launched_lanes["bwd"] += L
+    return dx[0] if one else dx
 
 
 def _gram_terms(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, use_poly):
-    """k_se [G, P, M] and, in 'se+p2', the polynomial terms (lin1, a2, b2)."""
-    diff = x_star[:, None, :] - x_tr[None, :, :]  # [P, M, D]
-    d = torch.einsum("pmd,gd->gpm", diff * diff, se_w)
-    k_se = se_lam[:, None, None] * torch.exp(-d)
+    """k_se [..., G, P, M] and, in 'se+p2', the polynomial terms (lin1, a2, b2)."""
+    diff = x_star[..., :, None, :] - x_tr[..., None, :, :]  # [..., P, M, D]
+    d = torch.einsum("...pmd,...gd->...gpm", diff * diff, se_w)
+    k_se = se_lam[..., None, None] * torch.exp(-d)
     if not use_poly:
         return k_se, None
-    lin1 = torch.einsum("pd,gd,md->gpm", x_star, poly1[:, :-1], x_tr) + poly1[:, -1:, None]
-    a2 = torch.einsum("pd,gd,md->gpm", x_star, poly2a, x_tr)
-    b2 = torch.einsum("pd,gd,md->gpm", x_star, poly2b, x_tr)
+    lin1 = (torch.einsum("...pd,...gd,...md->...gpm", x_star, poly1[..., :-1], x_tr)
+            + poly1[..., -1:, None])
+    a2 = torch.einsum("...pd,...gd,...md->...gpm", x_star, poly2a, x_tr)
+    b2 = torch.einsum("...pd,...gd,...md->...gpm", x_star, poly2b, x_tr)
     return k_se, (lin1, a2, b2)
 
 
 def reference_gram_contract(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha,
                             var_factor, mask, use_poly: bool, return_kf: bool = False):
-    """Plain PyTorch version of K1 (same formulas): the CPU path, the source
-    of every gradient but x*'s, and K1's oracle on the card."""
+    """Plain PyTorch version of K1 (same formulas, same optional lane axis):
+    the CPU path, the source of every gradient but x*'s, and K1's oracle on
+    the card."""
     k, poly = _gram_terms(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, use_poly)
     if poly is not None:
         lin1, a2, b2 = poly
         k = k + lin1 + a2 * b2
-    k = k * mask[:, None, :]
-    kalpha = torch.einsum("gpm,gm->gp", k, alpha)
+    k = k * mask[..., None, :]
+    kalpha = torch.einsum("...gpm,...gm->...gp", k, alpha)
     kf = torch.matmul(k, var_factor)
     quad = torch.sum(kf * kf, dim=-1)
     return (kalpha, quad, kf) if return_kf else (kalpha, quad)
@@ -229,19 +266,21 @@ def reference_gram_contract(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, a
 def reference_gram_contract_bwd_xstar(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha,
                                       var_factor, mask, kf, g1, g2, use_poly: bool):
     """Plain PyTorch version of K2: d(loss)/d(x_star) [P, D] from kF [G, P, M]
-    and the cotangents g1, g2 [G, P] of (kalpha, quad).  The formulas of the
-    TPU kernel's body (``_make_bwd_body``, mcpilco_tpu/ops/fused_predict.py)
-    with kF given instead of recomputed; K2's oracle on the card."""
+    and the cotangents g1, g2 [G, P] of (kalpha, quad), with the optional
+    lane axis in front.  The formulas of the TPU kernel's body
+    (``_make_bwd_body``, mcpilco_tpu/ops/fused_predict.py) with kF given
+    instead of recomputed; K2's oracle on the card."""
     k_se, poly = _gram_terms(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, use_poly)
-    kf_ft = torch.matmul(kf, var_factor.transpose(1, 2))  # [G, P, M]
-    kbar = (g1[:, :, None] * alpha[:, None, :] + 2.0 * g2[:, :, None] * kf_ft) * mask[:, None, :]
+    xs, xt = x_star[..., None, :, :], x_tr[..., None, :, :]  # a head axis
+    kf_ft = torch.matmul(kf, var_factor.mT)  # [..., G, P, M]
+    kbar = (g1[..., None] * alpha[..., None, :] + 2.0 * g2[..., None] * kf_ft) * mask[..., None, :]
     dbar = -kbar * k_se  # cotangent of the squared distance
-    dx = 2.0 * se_w[:, None, :] * (x_star * dbar.sum(-1, keepdim=True) - dbar @ x_tr)
+    dx = 2.0 * se_w[..., None, :] * (xs * dbar.sum(-1, keepdim=True) - dbar @ xt)
     if poly is not None:
         _, a2, b2 = poly
-        dx = (dx + poly1[:, None, :-1] * (kbar @ x_tr) + poly2a[:, None, :] * ((kbar * b2) @ x_tr)
-              + poly2b[:, None, :] * ((kbar * a2) @ x_tr))
-    return dx.sum(dim=0)
+        dx = (dx + poly1[..., None, :-1] * (kbar @ xt) + poly2a[..., None, :] * ((kbar * b2) @ xt)
+              + poly2b[..., None, :] * ((kbar * a2) @ xt))
+    return dx.sum(dim=-3)
 
 
 def _prep(t):
@@ -274,7 +313,7 @@ class GramContract(torch.autograd.Function):
     def backward(ctx, g_kalpha, g_quad):
         *args, kf = ctx.saved_tensors
         x_star = args[5]
-        zeros = x_star.new_zeros(args[0].shape[0], x_star.shape[0])
+        zeros = x_star.new_zeros(args[0].shape[:-1] + x_star.shape[-2:-1])  # [..., G, P]
         g1 = zeros if g_kalpha is None else g_kalpha
         g2 = zeros if g_quad is None else g_quad
         grads = [None] * len(args)

@@ -1,0 +1,303 @@
+"""Lane-batched multi-seed MC-PILCO training on one card: the seed farm.
+
+The port of ``mcpilco_tpu/parallel/multiseed.py``.  Every stage is a
+function of the seed's key, so S seeds train together, each against its own
+data, GP and posterior, with the seeds as a leading lane axis where the JAX
+package ``vmap``s over them:
+
+- **collect**: one RK4 loop rolls every seed's plant trial
+  (``ODEPlant.rollout_lanes``);
+- **fit**: one batched Adam over the S x G GP heads, with the NaN guard
+  acting per seed; per-seed SOD selection in one batched loop; the
+  posterior built at 1x / 10x / 100x jitter, and per seed the first finite
+  one kept (``gp.first_finite``);
+- **optimize**: ``PolicyOptimizer.optimize_lanes`` with one lane per seed,
+  whose predict launches K1/K2 once per rollout step for all seeds.
+
+The key derivations are those of the sequential ``MCPilco`` (``collect``,
+``_sample_x0``, ``improve_policy``), so a farmed seed draws what the same
+seed trained alone draws.  ``num_restarts > 1`` runs as sequential restart
+lanes through the S-lane loop, keeping each seed's winner.
+
+Scope: ODE plants (the flagship and multi-init cart-pole).  SOR, offline
+filtering (the 4PMS farm needs a device-side offline velocity estimator),
+host plants and a device mesh raise.  The TPU runtime's chunk budgeting is
+not ported: the loop returns to the host every step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..control.mc_pilco import MCPilco, ModelFitOptions, PolicyOptOptions
+from ..envs.plants import ODEPlant
+from ..models import sod as sod_mod
+from ..models.gp import GPData, first_finite, tree_map
+from ..ops import linalg
+from ..utils import prng
+
+JITTER_SCALES = (1.0, 10.0, 100.0)
+
+
+class FarmTrialLog(NamedTuple):
+    """Per-trial training record of every seed (leading axis: seeds)."""
+
+    cost_history: np.ndarray  # [S, max_opt_steps]
+    steps_done: np.ndarray  # [S]
+    reinit_count: np.ndarray  # [S]
+    mll_last: np.ndarray  # [S]
+    control_true: np.ndarray  # [S, N+1, ds] the executed control trial
+    control_inputs: np.ndarray  # [S, N+1, du]
+    wall_clock_s: float
+
+
+class FarmResult(NamedTuple):
+    seeds: np.ndarray  # [S]
+    trial_logs: List[FarmTrialLog]
+    policy_params: dict  # leading axis S
+
+    @property
+    def final_true(self) -> np.ndarray:
+        return self.trial_logs[-1].control_true
+
+    @property
+    def final_inputs(self) -> np.ndarray:
+        return self.trial_logs[-1].control_inputs
+
+
+def _stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _pad_to(v: np.ndarray, size: int, axis: int) -> np.ndarray:
+    widths = [(0, 0)] * v.ndim
+    widths[axis] = (0, size - v.shape[axis])
+    return np.pad(v, widths)
+
+
+@dataclasses.dataclass
+class SeedFarm:
+    """Trains ``seeds`` together with ``agent``'s configuration, on its device.
+
+    ``policy_init_fn(key) -> params`` initializes one seed's policy from its
+    root key (e.g. ``lambda k: cartpole.policy_init(cfg, agent.policy, k,
+    device)``); by default the policy's own ``init_params``.  ``progress_cb``
+    (no arguments) is called after every collection, model fit and
+    optimization lane.
+    """
+
+    agent: MCPilco
+    seeds: Sequence[int]
+    mesh: Optional[object] = None
+    policy_init_fn: Optional[Callable] = None
+    progress_cb: Optional[Callable] = None
+
+    def __post_init__(self):
+        a = self.agent
+        if getattr(a, "sor", None) is not None:
+            raise ValueError("the seed farm has no SOR path; train SOR seeds one at a time")
+        if a.offline_filtering:
+            raise ValueError("the seed farm does not run offline filtering (4PMS) yet: it needs "
+                             "a device-side offline velocity estimator")
+        if type(a.plant) is not ODEPlant:
+            raise ValueError(f"the seed farm rolls ODE plants only, got {type(a.plant).__name__}")
+        if self.mesh is not None:
+            raise ValueError("the seed farm runs on one card: no mesh")
+        dev = a.device
+        self.keys = [prng.root_key(s) for s in self.seeds]
+        init = self.policy_init_fn or (lambda k: a.policy.init_params(
+            prng.fold(prng.stream(k, prng.STREAM_POLICY_INIT), 0), device=dev))
+        self.policy_params = _stack([init(k) for k in self.keys])
+        self.expl_params = _stack([a.exploration_policy.init_params(
+            prng.fold(prng.stream(k, prng.STREAM_EXPLORATION), 0), device=dev) for k in self.keys])
+        self.gp_params = None
+        self.posterior = None
+        self.num_collections = 0
+        S = len(self.seeds)
+        self.gp_x = np.zeros((S, 0, a.model.gp_input_dim), np.float32)
+        self.gp_y = np.zeros((S, a.gp.num_heads, 0), np.float32)
+
+    def _tick(self):
+        if self.progress_cb is not None:
+            self.progress_cb()
+
+    # ---------------------------------------------------------- data
+
+    def _sample_x0(self, key, trial_index: int) -> np.ndarray:
+        a = self.agent
+        if a.fixed_initial_state:
+            mean = np.asarray(a.init_dist.mean, np.float32)
+            return mean[0] if mean.ndim == 2 else mean
+        k = prng.fold(prng.stream(key, prng.STREAM_SYSTEM), trial_index, 0xA)
+        return a.init_dist.sample_single(k).numpy()
+
+    def collect(self, T: float, trial_index: int, exploration: bool) -> tuple:
+        """One plant trial per seed, in one RK4 loop (``MCPilco.collect``'s
+        keys); adds the trials to the seeds' datasets.  Returns the true
+        states [S, N, ds] and inputs [S, N, du]."""
+        a = self.agent
+        pol = a.exploration_policy if exploration else a.policy
+        params = self.expl_params if exploration else self.policy_params
+        x0 = np.stack([self._sample_x0(k, trial_index) for k in self.keys])
+        keys = [prng.fold(prng.stream(k, prng.STREAM_SYSTEM), trial_index) for k in self.keys]
+        trial = a.plant.rollout_lanes(keys, x0, pol, params, T, a.dt, device=a.device)
+        pairs = [a.model.training_pairs(torch.as_tensor(m, dtype=torch.float32),
+                                        torch.as_tensor(u, dtype=torch.float32))
+                 for m, u in zip(trial.measured, trial.inputs)]
+        self.gp_x = np.concatenate([self.gp_x, np.stack([x.numpy() for x, _ in pairs])], axis=1)
+        self.gp_y = np.concatenate([self.gp_y, np.stack([y.numpy() for _, y in pairs])], axis=2)
+        self.num_collections += 1
+        self._tick()
+        return trial.true, trial.inputs
+
+    def _padded_data(self) -> GPData:
+        a = self.agent
+        S, n, d = self.gp_x.shape
+        cap = linalg.bucket_size(n, a.bucket, a.bucket)
+        x = np.zeros((S, cap, d), np.float32)
+        y = np.zeros((S, self.gp_y.shape[1], cap), np.float32)
+        x[:, :n], y[:, :, :n] = self.gp_x, self.gp_y
+        mask = np.zeros((S, cap), np.float32)
+        mask[:, :n] = 1.0
+        return GPData(*(torch.as_tensor(v, device=a.device) for v in (x, y, mask)))
+
+    # ---------------------------------------------------------- model
+
+    def fit_model(self, opts: ModelFitOptions) -> np.ndarray:
+        """Re-init and train every seed's GP heads in one batched fit, then
+        build the posteriors.  Returns each seed's final MLL [S]."""
+        a = self.agent
+        S = len(self.seeds)
+        p0 = a.gp.init_params(sigma_n=a.gp_sigma_n_init, device=a.device)
+        params = tree_map(lambda t: t.expand(S, *t.shape).clone(), p0)
+        data = self._padded_data()
+        self.gp_params, losses = a.gp.fit(params, data, num_epochs=opts.num_epochs,
+                                          learning_rate=opts.learning_rate)
+        self.posterior = self._build_posterior(data)
+        out = losses[:, -1].cpu().numpy()
+        self._tick()
+        return out
+
+    @torch.no_grad()
+    def _build_posterior(self, data: GPData):
+        """Every seed's posterior at 1x, 10x and 100x jitter, and per seed the
+        first finite one (``multiseed.py:318-355``): an fp32 Cholesky can tip
+        over on one seed's dataset, and a NaN posterior NaN-storms its whole
+        training."""
+        a = self.agent
+        variants = [a.gp.scaled(s) for s in JITTER_SCALES]
+        if a.sod is None:
+            return first_finite([gv.fit_posterior(self.gp_params, data) for gv in variants])
+        parts = [self._sod_subsets(gv, data) for gv in variants]
+        m = max(x.shape[1] for x, _, _ in parts)
+        posts = []
+        for gv, (x_tr, mask, y_tr) in zip(variants, parts):
+            padded = (_pad_to(x_tr, m, 1), _pad_to(mask, m, 2), _pad_to(y_tr, m, 2))
+            posts.append(gv.posterior(self.gp_params,
+                                      *(torch.as_tensor(v, device=a.device) for v in padded)))
+        return first_finite(posts)
+
+    def _sod_subsets(self, gp, data: GPData):
+        """Per seed, the SOD selection compacted to the union of the heads'
+        subsets as ``MCPilco._build_posterior_once`` does it, the seeds padded
+        to the largest bucket: (x_tr [S, M, D], mask [S, G, M], y [S, G, M])."""
+        a = self.agent
+        sel = sod_mod.select(gp, a.sod, self.gp_params, data.x, data.y, data.mask)
+        sel_np = sel.cpu().numpy() > 0.5
+        unions = [np.where(s.any(axis=0))[0] for s in sel_np]
+        m = max(linalg.bucket_size(len(u), a.bucket, a.bucket) for u in unions)
+        x_np, y_np = data.x.cpu().numpy(), data.y.cpu().numpy()
+        S, G = sel_np.shape[:2]
+        x_tr = np.zeros((S, m, x_np.shape[-1]), np.float32)
+        y_tr = np.zeros((S, G, m), np.float32)
+        mask = np.zeros((S, G, m), np.float32)
+        for i, u in enumerate(unions):
+            x_tr[i, : len(u)] = x_np[i, u]
+            y_tr[i, :, : len(u)] = y_np[i][:, u]
+            mask[i, :, : len(u)] = sel_np[i][:, u]
+        return x_tr, mask, y_tr
+
+    # ---------------------------------------------------------- policy
+
+    def improve_policy(self, opts: PolicyOptOptions, trial_index: int) -> tuple:
+        """Every seed's policy optimization, as lanes of one loop.
+
+        ``optimizer.num_restarts > 1`` runs the restarts one after another:
+        restart 0 from each seed's incoming params on the single-restart
+        schedule, restart r from ``policy.reinit`` with the seed's
+        ``split(fold(key, STREAM_RESTARTS), R - 1)[r - 1]``; each seed keeps
+        its own winner.  Returns (cost_history [S, max_opt_steps],
+        steps_done [S], reinit_count [S]).
+        """
+        a = self.agent
+        R = max(int(a.optimizer.num_restarts), 1)
+        keys = [prng.fold(prng.stream(k, prng.STREAM_ROLLOUT), trial_index) for k in self.keys]
+        best, best_metric = None, None
+        for r in range(R):
+            params = self.policy_params
+            if r:
+                params = a.policy.reinit(params, [
+                    prng.split(prng.fold(k, prng.STREAM_RESTARTS), R - 1)[r - 1] for k in keys])
+            results, metric = self._optimize_lane(opts, trial_index, keys, params, lane_id=r)
+            if best is None:
+                best, best_metric = results, metric
+                continue
+            for i, (m_new, m_old) in enumerate(zip(metric, best_metric)):
+                if np.isfinite(m_new) and (not np.isfinite(m_old) or m_new < m_old):
+                    best[i], best_metric[i] = results[i], m_new
+        self.policy_params = _stack([res.policy_params for res in best])
+        return (np.stack([res.cost_history.numpy() for res in best]),
+                np.asarray([res.steps_done for res in best]),
+                np.asarray([res.reinit_count for res in best]))
+
+    def _optimize_lane(self, opts: PolicyOptOptions, trial_index: int, keys, lane_params,
+                       lane_id: int):
+        """One restart lane of every seed: (one OptResult per seed, each
+        seed's winner metric [S])."""
+        out = self.agent.optimizer.optimize_lanes(
+            keys, lane_params, self.gp_params, self.posterior, opts.opt_steps,
+            opts.learning_rate, opts.p_dropout, trial_index, rids=[lane_id] * len(keys))
+        self._tick()
+        return out
+
+    # ---------------------------------------------------------- main loop
+
+    def run(self, *, num_trials: int, T_exploration: float, T_control: float,
+            model_fit_options: Sequence[ModelFitOptions],
+            policy_opt_options: Sequence[PolicyOptOptions], num_explorations: int = 1,
+            verbose: bool = True) -> FarmResult:
+        """``MCPilco.reinforce`` for every seed at once."""
+        for e in range(num_explorations):
+            if verbose:
+                print(f"[seed-farm] exploration {e} ({len(self.seeds)} seeds)")
+            self.collect(T_exploration, trial_index=e, exploration=True)
+        logs: List[FarmTrialLog] = []
+        for trial in range(num_trials):
+            t0 = time.time()
+            mll_last = self.fit_model(model_fit_options[min(trial, len(model_fit_options) - 1)])
+            if verbose:
+                print(f"[seed-farm] trial {trial}: N={self.gp_x.shape[1]} mll_last median "
+                      f"{np.median(mll_last):.1f} ({time.time() - t0:.1f}s)")
+            t1 = time.time()
+            cost_hist, steps, reinits = self.improve_policy(
+                policy_opt_options[min(trial, len(policy_opt_options) - 1)], trial)
+            if verbose:
+                last = cost_hist[np.arange(len(self.seeds)), np.maximum(steps - 1, 0)]
+                print(f"[seed-farm] trial {trial}: opt steps med {int(np.median(steps))}, final "
+                      f"cost med {np.median(last):.2f}, reinits {int(reinits.sum())} "
+                      f"({time.time() - t1:.1f}s, "
+                      f"{1e3 * (time.time() - t1) / max(int(steps.max()), 1):.2f} "
+                      f"ms/step-all-seeds)")
+            true_states, inputs = self.collect(T_control, trial_index=self.num_collections,
+                                               exploration=False)
+            logs.append(FarmTrialLog(cost_history=cost_hist, steps_done=steps,
+                                     reinit_count=reinits, mll_last=mll_last,
+                                     control_true=true_states, control_inputs=inputs,
+                                     wall_clock_s=time.time() - t0))
+        return FarmResult(seeds=np.asarray(list(self.seeds)), trial_logs=logs,
+                          policy_params=self.policy_params)

@@ -107,7 +107,7 @@ def policy_init(cfg: CartpoleConfig, policy, key, device):
     return random_policy_params(policy, key, device, cfg.num_basis, cfg.u_max, scale)
 
 
-def build(cfg: CartpoleConfig, device) -> tuple:
+def build(cfg: CartpoleConfig, device="cuda") -> tuple:
     """Returns (MCPilco, reinforce_kwargs) with every tensor on ``device``."""
     disable_tf32()
     device = torch.device(device)

@@ -54,8 +54,10 @@ class CartpolePMSConfig:
     # offline velocity estimator of the GP targets: "butter_cd" (the
     # reference protocol) or "savgol" (Savitzky-Golay, window 7, order 5)
     vel_est: str = "butter_cd"
-    num_restarts: int = 1  # policy-init restarts per trial; only 1 is ported
-    restart_vmap: bool = True  # accepted for config parity; no effect here
+    # policy-init restarts per trial (PolicyOptimizer.num_restarts); False:
+    # the restart lanes run one after another instead of lane-batched
+    num_restarts: int = 1
+    restart_vmap: bool = True
     log_dir: Optional[str] = None
 
     def smoke(self) -> "CartpolePMSConfig":
@@ -69,10 +71,8 @@ def policy_init(cfg: CartpolePMSConfig, policy, key, device):
     return base.random_policy_params(policy, key, device, cfg.num_basis, cfg.u_max)
 
 
-def build(cfg: CartpolePMSConfig, device) -> tuple:
+def build(cfg: CartpolePMSConfig, device="cuda") -> tuple:
     """Returns (MCPilco, reinforce_kwargs) with every tensor on ``device``."""
-    if cfg.num_restarts > 1:
-        raise NotImplementedError("policy-init restarts (num_restarts > 1) are not ported yet")
     disable_tf32()
     device = torch.device(device)
     key = prng.root_key(cfg.seed)
@@ -117,6 +117,7 @@ def build(cfg: CartpolePMSConfig, device) -> tuple:
         max_opt_steps=max(cfg.opt_steps),
         alpha_diff_cost=0.99, min_diff_cost=0.08, num_min_diff_cost=200,
         min_step=200.0, lr_min=0.0025, p_drop_reduction=0.125,
+        num_restarts=cfg.num_restarts, restart_vmap=cfg.restart_vmap,
     )
     agent = MCPilco(
         dt=cfg.dt, model=model, gp=gp, policy=policy,

@@ -26,6 +26,7 @@ STREAM_EXPLORATION = 0x5E
 STREAM_MEAS_NOISE = 0x6F
 STREAM_MODEL_FIT = 0x70
 STREAM_SYSTEM = 0x81
+STREAM_RESTARTS = 0x92
 
 
 def root_key(seed: int) -> Key:
@@ -40,6 +41,12 @@ def stream(key: Key, tag: int) -> Key:
 def fold(key: Key, *indices) -> Key:
     """Fold a sequence of integer counters into ``key``."""
     return key + tuple(int(i) for i in indices)
+
+
+def split(key: Key, num: int) -> list:
+    """``num`` independent keys derived from ``key`` (``jax.random.split``'s
+    role)."""
+    return [fold(key, i) for i in range(num)]
 
 
 def generator(key: Key, device) -> torch.Generator:

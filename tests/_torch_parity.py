@@ -67,7 +67,7 @@ def collect_data(num_trials=1, T=3.0, seed=0, pms=False):
     xs, ys = [], []
     for i in range(num_trials):
         trial = plant.rollout(tprng.fold(tprng.root_key(seed), i), np.zeros(4), expl, params, T,
-                              dt)
+                              dt, device="cpu")
         states, inputs = trial.measured, trial.inputs
         if pms:
             states, inputs = offline_velocity_estimation(trial.noisy, inputs, dt, (0, 2), (1, 3))

@@ -162,7 +162,7 @@ def test_pms_plant_matches_jax(policy):
                     for i in range(n)])
     tt = tplants.PMSODEPlant(**plant_kw).rollout(tprng.root_key(7), s0, tp,
                                                   to_torch(_np(params), "cpu"), 1.0, PMS_DT,
-                                                  eps=torch.as_tensor(eps))
+                                                  device="cpu", eps=torch.as_tensor(eps))
     assert tt.measured.shape == tt.true.shape == tt.noisy.shape == (n + 1, 4)
     assert tt.inputs.shape == (n + 1, 1)
     np.testing.assert_array_equal(tt.measured[0], s0.astype(np.float32))
@@ -255,7 +255,10 @@ def test_pms_rollout_cost_and_optimizer_steps_match_jax(pms_problem):
         pol, params, post, key, jnp.float32(p_drop), 0)
     leaves = {k: v.clone().requires_grad_(True) for k, v in t_pol.items()}
     noise = jax_rollout_noise(key, P, T, 2, NB, p_drop, init_dim=4, n_pos=2)
-    ct, _ = topt._rollout_cost(leaves, t["gp"], t["post"], tprng.root_key(11), p_drop, 0, noise)
+    lanes = {k: v[None] for k, v in leaves.items()}  # one lane
+    ct, _ = topt._rollout_cost(lanes, t["gp"], t["post"], [tprng.root_key(11)], p_drop, 0,
+                               troll.stack_lanes([noise]))
+    ct = ct[0]
     np.testing.assert_allclose(ct.item(), float(cj), rtol=1e-3)
     _assert_grads_close(torch.autograd.grad(ct, list(leaves.values())), gj, leaves)
 
@@ -319,8 +322,8 @@ def test_pms_smoke_config_trains_end_to_end_on_cpu():
         assert np.all(np.isfinite(trial.true))
     assert agent.gp_x.shape[0] == 2 * 88
     assert agent.posterior.x_tr.shape[0] == 128  # N=88 at the fit, exact GP in a 128 bucket
-    with pytest.raises(NotImplementedError, match="restarts"):
-        tpms.build(dataclasses.replace(cfg, num_restarts=2), "cpu")
+    agent2, _ = tpms.build(dataclasses.replace(cfg, num_restarts=2, restart_vmap=False), "cpu")
+    assert (agent2.optimizer.num_restarts, agent2.optimizer.restart_vmap) == (2, False)
 
 
 def test_initial_state_distributions_match_jax():

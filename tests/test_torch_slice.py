@@ -26,6 +26,7 @@ from mcpilco_tpu.control import trainer as jtrainer
 from mcpilco_tpu.models import gp as jgp
 from mcpilco_tpu.utils import prng as jprng
 from mcpilco_tpu_torch.control import trainer as ttrainer
+from mcpilco_tpu_torch.control.rollout import stack_lanes
 from mcpilco_tpu_torch.models import gp as tgp
 from mcpilco_tpu_torch.scenarios import cartpole as tcart
 from mcpilco_tpu_torch.utils import prng as tprng
@@ -66,7 +67,10 @@ def test_small_slice_matches_jax():
         pol, params, post, key, jnp.float32(p_drop), 0)
     leaves = {k: v.clone().requires_grad_(True) for k, v in t_pol.items()}
     noise = jax_rollout_noise(key, P, T, 2, NB, p_drop, init_dim=4)
-    ct, _ = topt._rollout_cost(leaves, t_gp, t_post, tprng.root_key(11), p_drop, 0, noise)
+    lanes = {k: v[None] for k, v in leaves.items()}  # one lane
+    ct, _ = topt._rollout_cost(lanes, t_gp, t_post, [tprng.root_key(11)], p_drop, 0,
+                               stack_lanes([noise]))
+    ct = ct[0]
     gt = torch.autograd.grad(ct, list(leaves.values()))
     np.testing.assert_allclose(ct.item(), float(cj), rtol=1e-3)
     for name, g in zip(leaves, gt):
