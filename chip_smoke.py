@@ -24,26 +24,48 @@ Phases (each prints one line with its time; any failure exits non-zero):
    the learning-curve check: 10 steps from one key through the kernels and
    through ``MultiGP._predict_plain``, both cost trajectories printed;
 4. the flagship main path through the user's entry points:
-   ``cartpole.build`` then ``reinforce`` for 2 trials of 30 steps at full
-   width, and the multi-init variant for 1 trial of 20, with the kernel
-   launch counts of those runs;
+   ``cartpole.build`` then ``reinforce`` for 1 trial of 10 steps at full
+   width (a 500-epoch fit), and the multi-init variant for 1 trial of 10,
+   with the kernel launch counts of those runs;
 5. the 4PMS policy-optimization step: 5 sinusoid-exploration trials
    through the PMS plant with offline filtering (N=440, M=448), a
    1501-epoch exact GP fit, the fitted 'se' posterior through K1 against
    float64, 30 optimizer steps at P=400 and horizon 90, and the
    learning-curve check;
-6. the 4PMS main path: ``cartpole_pms.build`` then ``reinforce`` for 2
-   trials of 40 steps at full width, with its launch counts;
+6. the 4PMS main path: ``cartpole_pms.build`` then ``reinforce`` for 1
+   trial of 10 steps at full width (a 500-epoch fit), with its launch
+   counts;
 7. the seed farm at full width: ``SeedFarm`` over 4 flagship seeds (P=400,
-   horizon 60, SE+P(2), SOD, 1501-epoch fits), 1 exploration and 2 trials
-   of 30 steps, K1/K2 launched with 4 lanes; then the farm's optimizer
+   horizon 60, SE+P(2), SOD, 500-epoch fits), 1 exploration and 2 trials
+   of 10 steps, K1/K2 launched with 4 lanes; then the farm's optimizer
    step profiled beside one seed's (host ms/step, device busy, device
    events per step, idle share), and one seed's 10-step cost curve farmed
    against the same seed trained alone (within 0.1% relative);
-8. restart lanes: a 1-trial 4PMS ``reinforce`` with ``num_restarts=2``,
-   with each lane's cost and the winner.
+8. restart lanes: a 1-trial 4PMS ``reinforce`` of 20 steps (a 500-epoch
+   fit) with ``num_restarts=2``, with each lane's cost and the winner;
+9. the Furuta policy-optimization step: 2 exploration trials of the
+   QUBE-like plant (N=300, M=320, exact GP), a 1501-epoch fit of the
+   semiparametric Sum(SE, Linear) model, its posterior against float64 on
+   the plain path, 30 optimizer steps at P=400 and horizon 150 timed as
+   the host window of the step profile (host ms/step, then device busy,
+   device events per step and idle share over 3 profiled steps); then the
+   same on the same two trials with ``semiparametric=False`` (SE over 12
+   dims, K1/K2 in their wide path), the fitted posterior through K1
+   against float64 and the learning-curve check;
+10. the Furuta main path: ``furuta.build`` then ``reinforce`` for 2 trials
+    of 20 steps (no kernel structure: 0 launches), and the
+    ``semiparametric=False`` variant for 1 trial of 20 (both kernels);
+11. SOR: the flagship cart-pole ``reinforce`` for 1 trial of 20 steps with
+    the SOD posterior replaced by the Subset-of-Regressors approximation
+    (relative threshold 0.5, 200 epochs of SOR-MLL refinement with trained
+    inducing inputs), with the inducing points, the SOR MLL and ms/step.
 
-Phase 2 also holds the lane-batched K1/K2 (L in {1, 4} at the flagship and
+Phase 2 also holds K1/K2 in their wide path (input dims above 8, walked in
+chunks of 8) against their plain versions at the Furuta shapes ('se', D=12,
+G=2, P=400, M in {192, 960}) and the UR5 shape ('se+p2', D=24, G=6, P=200,
+M=448), with device times and bounds, and ``MultiGP.predict`` on the card
+at those widths (K1/K2 launched, against ``_predict_plain``).  It also
+holds the lane-batched K1/K2 (L in {1, 4} at the flagship and
 4PMS shapes, L=3 at M=37, whose lane strides are not 16-byte aligned, L=4
 at the farm's M=128, and P=800 for two folded restart lanes) against their
 plain versions and, lane by lane, bitwise against the L=1 launch, with
@@ -53,8 +75,19 @@ against ``MultiGP._predict_plain``.
 
 There is no CPU path: without a CUDA device the script exits non-zero.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it lists the
-kernels with their launches (phases 4, 6, 7 and 8), errors, device times at
-the flagship shapes and their bounds.
+kernels with their launches (phases 4, 6, 7, 8 and 10), errors, device times at
+the flagship shapes and their bounds, and the same per wide shape
+(``by_shape``).
+
+    python3 chip_smoke.py --phases 2,9,10,11
+
+runs phase 1 and only the listed phases (the kernels line needs all).
+
+    python3 chip_smoke.py --kernel-ab PATH
+
+builds the kernels of the checkout at PATH beside this checkout's and times
+K1/K2 at the flagship and 4PMS shapes for PATH / this / this / PATH, with
+both builds' ``ptxas`` reports.
 
     python3 chip_smoke.py --farm-sweep 1,2,4,8
 
@@ -99,6 +132,9 @@ LANE_CASES = ((True, 400, M_FLAGSHIP, (1, 4)), (False, 400, M_PMS, (1, 4)),
               (False, 37, 37, (3,)), (True, 37, 37, (3,)), (True, 400, M_SMALL, (4,)),
               (False, 800, M_SMALL, (1,)), (False, 800, M_PMS, (1,)))
 FARM_SEEDS = 4
+# the wide path's shapes: (use_poly, G, P, M, D); the Furuta SE posterior at
+# its first and sixth trial, and UR5's SE+P(2)
+WIDE_CASES = ((False, 2, 400, 192, 12), (False, 2, 400, 960, 12), (True, 6, 200, 448, 24))
 # NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): float32 outside
 # the tensor cores, and HBM
 PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
@@ -109,6 +145,8 @@ def phase(name, t0):
 
 
 def card_facts():
+    """Print the card's name and power limit (``nvidia-smi``) and the
+    software versions; returns the ``nvidia-smi`` line."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -118,14 +156,17 @@ def card_facts():
           f"python {sys.version.split()[0]}", flush=True)
     print(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
+    return smi
 
 
-def kernel_inputs(P, M, seed, dev):
-    """Seeded inputs shaped like one rollout step's predict call."""
+def kernel_inputs(P, M, seed, dev, G=G, D=D):
+    """Seeded inputs shaped like one rollout step's predict call; the inverse
+    squared lengthscales scale as 6 / D, so that the SE part stays O(0.1-1)
+    at every width."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s)
     arrs = [
-        np.exp(0.3 * f(G, D)), np.exp(0.2 * f(G)), 0.1 * np.exp(0.3 * f(G, D + 1)),
+        np.exp(0.3 * f(G, D)) * (6.0 / D), np.exp(0.2 * f(G)), 0.1 * np.exp(0.3 * f(G, D + 1)),
         0.1 * np.exp(0.3 * f(G, D)), 0.1 * np.exp(0.3 * f(G, D)), f(P, D), f(M, D),
         f(G, M), 0.05 * f(G, M, M), (rng.uniform(size=(G, M)) > 0.2).astype(np.float64),
     ]
@@ -158,17 +199,20 @@ def device_us(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / iters
-    if not per:
-        raise RuntimeError("torch.profiler recorded no kernel on the card")
-    return per
+    # a profiled window now and then comes back without device records:
+    # profile the next one
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / iters
+        if per:
+            return per
+    raise RuntimeError("torch.profiler recorded no kernel on the card in 3 windows")
 
 
 def named_us(per, name):
@@ -179,18 +223,18 @@ def max_err(a, b):
     return float(torch.max(torch.abs(a - b)))
 
 
-def cotangents(P, dev):
+def cotangents(P, dev, G=G):
     wk = torch.linspace(0.5, 1.5, G * P, device=dev).reshape(G, P)
     wq = torch.linspace(-1.0, 1.0, G * P, device=dev).reshape(G, P)
     return wk, wq
 
 
-def check_case(fp, use_poly, P, M, dev):
+def check_case(fp, use_poly, P, M, dev, G=G, D=D):
     """K1 and K2 against their plain versions at one shape, x*'s gradient
     through GramContract against autograd through the plain K1, and two
     calls bitwise equal.  Returns the max errors (K1, K2)."""
-    args = kernel_inputs(P, M, seed=P + M + 10 * use_poly, dev=dev)
-    wk, wq = cotangents(P, dev)
+    args = kernel_inputs(P, M, seed=P + M + 10 * use_poly, dev=dev, G=G, D=D)
+    wk, wq = cotangents(P, dev, G)
     out = fp.fused_gram_contract(*args, use_poly, return_kf=True)
     ref = fp.reference_gram_contract(*args, use_poly, return_kf=True)
     dx = fp.fused_gram_contract_bwd_xstar(*args, out[2], wk, wq, use_poly)
@@ -213,19 +257,18 @@ def check_case(fp, use_poly, P, M, dev):
         raise RuntimeError(f"P={P} M={M}: two calls on the same inputs differ")
     e_fwd = max(max_err(a, b) for a, b in zip(out, ref))
     e_bwd = max(max_err(dx, dx_r), max_err(g_k, g_r))
-    kind = "se+p2" if use_poly else "se"
+    kind = ("se+p2" if use_poly else "se") + ("" if D == 6 else f" D={D} G={G}")
     print(f"  {kind:5s} P={P:3d} M={M:4d}: K1 err {e_fwd:.3e} | K2 err {e_bwd:.3e} "
           f"(plain K2 {max_err(dx, dx_r):.3e}, autograd {max_err(g_k, g_r):.3e}) | "
           f"bitwise equal across calls", flush=True)
     return e_fwd, e_bwd
 
 
-def time_kernels(fp, use_poly, M, dev):
+def time_kernels(fp, use_poly, M, dev, P=400, G=G, D=D):
     """K1 (as the main path calls it, saving kF) and K2 against their plain
-    versions at P=400: CUDA-event and device times, in ms."""
-    P = 400
-    args = kernel_inputs(P, M, seed=M + 10 * use_poly, dev=dev)
-    wk, wq = cotangents(P, dev)
+    versions: CUDA-event and device times, in ms."""
+    args = kernel_inputs(P, M, seed=M + 10 * use_poly, dev=dev, G=G, D=D)
+    wk, wq = cotangents(P, dev, G)
     kf = fp.fused_gram_contract(*args, use_poly, return_kf=True)[2]
     kf_r = fp.reference_gram_contract(*args, use_poly, return_kf=True)[2]
     fns = dict(
@@ -239,7 +282,7 @@ def time_kernels(fp, use_poly, M, dev):
     dev_ms = {k: 1e-3 * sum(p.values()) for k, p in per.items()}
     dev_ms["k1_kernel"] = 1e-3 * named_us(per["k1"], "k1_forward")
     dev_ms["k2_kernel"] = 1e-3 * named_us(per["k2"], "k2_backward_xstar")
-    kind = "se+p2" if use_poly else "se"
+    kind = ("se+p2" if use_poly else "se") + ("" if D == 6 else f" D={D} G={G}")
     print(f"  time {kind:5s} P={P} M={M}, device ms: K1 kernel {dev_ms['k1_kernel']:.4f} "
           f"(call {dev_ms['k1']:.4f}) plain {dev_ms['k1_plain']:.4f} | K2 kernel "
           f"{dev_ms['k2_kernel']:.4f} (call {dev_ms['k2']:.4f}) plain {dev_ms['k2_plain']:.4f}; "
@@ -268,24 +311,41 @@ def check_kernels(fp, dev):
     for M in (M_FLAGSHIP, M_PMS):
         k1, k2 = fp.launch_blocks(G, 400, M)
         print(f"  blocks per launch at P=400 M={M}: K1 {k1}, K2 {k2} (132 SMs)", flush=True)
-    for e_fwd, e_bwd in (check_lanes(fp, dev), check_predict_lanes(dev)):
+    for key in rec:
+        rec[key]["by_shape"] = []
+    for use_poly, g, P, M, d in WIDE_CASES:
+        errs = check_case(fp, use_poly, P, M, dev, G=g, D=d)
+        t = time_kernels(fp, use_poly, M, dev, P=P, G=g, D=d)
+        shape = f"{'se+p2' if use_poly else 'se'} D={d} G={g} P={P} M={M}"
+        for key, work, kernel, err in (("fwd", k1_work, "k1", errs[0]),
+                                       ("bwd", k2_work, "k2", errs[1])):
+            ms, by = bound(work(1, P, M, use_poly, G=g, D=d))
+            rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"], err)
+            rec[key]["by_shape"].append(dict(shape=shape, ms=t[f"{kernel}_kernel"],
+                                             plain_ms=t[f"{kernel}_plain"], bound_ms=ms,
+                                             bound_by=by, max_abs_err=err))
+        k1, k2 = fp.launch_blocks(g, P, M)
+        print(f"  wide {shape}: bound K1 {rec['fwd']['by_shape'][-1]['bound_ms']:.4f} ms, "
+              f"K2 {rec['bwd']['by_shape'][-1]['bound_ms']:.4f} ms "
+              f"({rec['fwd']['by_shape'][-1]['bound_by']}); blocks K1 {k1}, K2 {k2}", flush=True)
+    for e_fwd, e_bwd in (check_lanes(fp, dev), check_predict_lanes(dev), check_predict_wide(dev)):
         rec["fwd"]["max_abs_err"] = max(rec["fwd"]["max_abs_err"], e_fwd)
         rec["bwd"]["max_abs_err"] = max(rec["bwd"]["max_abs_err"], e_bwd)
     return rec
 
 
-def k1_work(L, P, M, use_poly):
+def k1_work(L, P, M, use_poly, G=G, D=D):
     """(bytes, flops) of K1 as the main path calls it (kF saved): every
     input read once, every output written once; flops of the kF
     contraction, kalpha, quad and the k generation (distance, exp, mask and
-    the polynomial terms, an FMA counted as 2)."""
+    the polynomial terms over the D input dims, an FMA counted as 2)."""
     inputs = G * D + G + G * (D + 1) + 2 * G * D + P * D + M * D + G * M + G * M * M + G * M
     outputs = 2 * G * P + G * P * M
     gen = 4 * D + 4 + (6 * D + 3 if use_poly else 0)
     return 4 * L * (inputs + outputs), L * G * P * M * (2 * M + 4 + gen)
 
 
-def k2_work(L, P, M, use_poly):
+def k2_work(L, P, M, use_poly, G=G, D=D):
     """(bytes, flops) of K2: reads K1's inputs, kF and the cotangents, writes
     dx*; flops of R = kF F^T and the chain rule per (particle, point)."""
     inputs = (G * D + G + G * (D + 1) + 2 * G * D + P * D + M * D + G * M + G * M * M + G * M
@@ -411,6 +471,51 @@ def check_predict_lanes(dev):
     return tuple(worst)
 
 
+def check_predict_wide(dev):
+    """``MultiGP.predict`` on the card above 8 input dims: a full-dims SE over
+    12 (the Furuta ``semiparametric=False`` model) and an SE+P(2) over 24 with
+    6 heads (UR5's).  Each call must launch K1 and K2 once (no plain path,
+    no exception) and agree with ``_predict_plain`` at FWD_TOL / GRAD_TOL,
+    x*'s gradient included.  Returns the max errors (forward, gradient)."""
+    from mcpilco_tpu_torch.models import kernels as K
+    from mcpilco_tpu_torch.models.gp import MultiGP, Posterior
+    from mcpilco_tpu_torch.ops import fused_predict as fp
+
+    worst = [0.0, 0.0]
+    for use_poly, g, P, M, d in (WIDE_CASES[0], WIDE_CASES[2]):
+        dims = tuple(range(d))
+        gp = MultiGP(kernel=K.se_plus_volterra(dims, 2) if use_poly else K.SEArd(dims),
+                     num_heads=g)
+        ls = {"lengthscales": math.sqrt(d / 6.0)}
+        small = {"sigma_diag": math.sqrt(0.1)}
+        params = gp.init_params(per_head_overrides=[
+            {"member_overrides": [ls, small, small]} if use_poly else ls] * g, device=dev)
+        a = kernel_inputs(P, M, seed=23 + M + d, dev=dev, G=g, D=d)
+        post = Posterior(x_tr=a[6], mask=a[9], alpha=a[7], var_factor=0.1 * a[8],
+                         norm=torch.ones(g, device=dev))
+        wk, wq = cotangents(P, dev, g)
+        out = {}
+        for name, fn in (("predict", gp.predict), ("plain", gp._predict_plain)):
+            fp.reset_launches()
+            xs = a[5].clone().requires_grad_(True)
+            mean, var = fn(params, post, xs)
+            grad = torch.autograd.grad(torch.sum(wk * mean) + torch.sum(wq * var), xs)[0]
+            torch.cuda.synchronize()
+            out[name] = (mean.detach(), var.detach(), grad, dict(fp.launches))
+        if out["predict"][3] != {"fwd": 1, "bwd": 1} or out["plain"][3] != {"fwd": 0, "bwd": 0}:
+            raise RuntimeError(f"D={d}: predict launched {out['predict'][3]}, the plain path "
+                               f"{out['plain'][3]}")
+        for i, tol in ((0, FWD_TOL), (1, FWD_TOL), (2, GRAD_TOL)):
+            torch.testing.assert_close(out["predict"][i], out["plain"][i], **tol)
+        errs = [max(max_err(out["predict"][i], out["plain"][i]) for i in (0, 1)),
+                max_err(out["predict"][2], out["plain"][2])]
+        worst = [max(w, e) for w, e in zip(worst, errs)]
+        print(f"  predict {'se+p2' if use_poly else 'se'} D={d} G={g} P={P} M={M} on the card: "
+              f"K1/K2 launched once each; against _predict_plain max err mean/var "
+              f"{errs[0]:.3e}, x* gradient {errs[1]:.3e}", flush=True)
+    return tuple(worst)
+
+
 def time_predicts(dev):
     """The step's own predict per rollout step, plain ops against kernels.
 
@@ -467,33 +572,43 @@ def check_real_posterior(gp, gp_params, post, gp_x, dev):
     rng = np.random.default_rng(0)
     xs = torch.as_tensor(gp_x[rng.integers(0, len(gp_x), 400)], device=dev)
     to64 = lambda tree: tree_map(torch.Tensor.double, tree)
+    paths = {"plain": gp._predict_plain}
+    if gp._fused_structure() is not None:
+        paths["kernel"] = gp._predict_fused
     with torch.no_grad():
-        m_k, v_k = gp._predict_fused(gp_params, post, xs)
-        m_p, v_p = gp._predict_plain(gp_params, post, xs)
+        got = {name: fn(gp_params, post, xs) for name, fn in paths.items()}
         m_64, v_64 = gp._predict_plain(to64(gp_params), to64(post), xs.double())
     torch.cuda.synchronize()
     errs = {name: (max_err(m.double(), m_64), max_err(v.double(), v_64))
-            for name, (m, v) in (("kernel", (m_k, v_k)), ("plain", (m_p, v_p)))}
-    print(f"  fitted posterior M={post.x_tr.shape[0]}, P=400, max |mean| "
+            for name, (m, v) in got.items()}
+    print(f"  fitted posterior M={post.x_tr.shape[-2]}, P=400, max |mean| "
           f"{float(m_64.abs().max()):.3e}, max var {float(v_64.max()):.3e}; against float64: "
-          f"kernel mean err {errs['kernel'][0]:.3e} var err {errs['kernel'][1]:.3e} | "
-          f"plain mean err {errs['plain'][0]:.3e} var err {errs['plain'][1]:.3e}", flush=True)
+          + " | ".join(f"{name} mean err {e[0]:.3e} var err {e[1]:.3e}"
+                       for name, e in sorted(errs.items())), flush=True)
+    if not all(math.isfinite(e) for pair in errs.values() for e in pair):
+        raise RuntimeError(f"non-finite prediction on the fitted posterior: {errs}")
     for i, what in enumerate(("mean", "var")):
-        if errs["kernel"][i] > 4 * errs["plain"][i] + 1e-6:
+        if "kernel" in errs and errs["kernel"][i] > 4 * errs["plain"][i] + 1e-6:
             raise RuntimeError(f"K1 {what} on the fitted posterior is less accurate than the "
                                f"plain path: {errs}")
 
 
-def policy_step(agent, num_trials, T, fp, dev, expect_m=None):
-    """Collect ``num_trials`` exploration trials, fit the GP for 1501 epochs,
-    hold K1 on the fitted posterior against float64, then time 30 optimizer
-    steps at full width after 5 warm-up steps."""
+def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, trials=None):
+    """Collect ``num_trials`` exploration trials (or ingest the given
+    ``trials`` of another agent on the same plant), fit the GP for 1501
+    epochs, hold K1 (where the kernel structure has one) and the plain path
+    on the fitted posterior against float64, then time 30 optimizer steps at
+    full width after 5 warm-up steps; with ``profile`` the step profile, and
+    with kernels the learning-curve check."""
     from mcpilco_tpu_torch.control.mc_pilco import ModelFitOptions
     from mcpilco_tpu_torch.utils import prng
 
     t_plant = time.perf_counter()
     for i in range(num_trials):
-        agent.collect(T, trial_index=i, exploration=True)
+        if trials is None:
+            agent.collect(T, trial_index=i, exploration=True)
+        else:
+            agent._ingest(trials[i])
     plant_s = time.perf_counter() - t_plant
     t_fit = time.perf_counter()
     info = agent.fit_model(ModelFitOptions(num_epochs=1501))
@@ -509,23 +624,41 @@ def policy_step(agent, num_trials, T, fp, dev, expect_m=None):
     check_real_posterior(agent.gp, agent.gp_params, agent.posterior, agent.gp_x, dev)
     fp.reset_launches()
     opt = agent.optimizer
-    opt.optimize(prng.root_key(7), agent.policy_params, agent.gp_params, agent.posterior,
-                 num_opt_steps=5, lr0=0.01, p_dropout0=0.25)
-    torch.cuda.synchronize()
-    t_opt = time.perf_counter()
-    res = opt.optimize(prng.fold(prng.root_key(7), 1), agent.policy_params, agent.gp_params,
-                       agent.posterior, num_opt_steps=30, lr0=0.01, p_dropout0=0.25)
-    torch.cuda.synchronize()
-    opt_s = time.perf_counter() - t_opt
+    runs = {}
+
+    def run(n):
+        runs[n] = opt.optimize(prng.fold(prng.root_key(7), 1), agent.policy_params,
+                               agent.gp_params, agent.posterior, num_opt_steps=n, lr0=0.01,
+                               p_dropout0=0.25)
+        torch.cuda.synchronize()
+
+    if profile:
+        # the 30 timed steps are the profile's host window: (run(31) - run(1)) / 30;
+        # busy over 3 - 1 profiled steps (~47K events each at horizon 150)
+        p = profile_steps(run, host_steps=30, window=3)
+        res, ms_step, steps = runs[31], p["host_ms"], 31
+    else:
+        run(5)
+        t_opt = time.perf_counter()
+        run(30)
+        res, ms_step, steps = runs[30], 1e3 * (time.perf_counter() - t_opt) / 30, 30
     costs = res.cost_history[: res.steps_done].numpy()
-    if res.steps_done != 30 or not np.all(np.isfinite(costs)):
+    if res.steps_done != steps or not np.all(np.isfinite(costs)):
         raise RuntimeError(f"policy step: {res.steps_done} steps, costs {costs}")
-    if min(fp.launches.values()) == 0:
-        raise RuntimeError(f"the policy step did not run both kernels: {fp.launches}")
-    print(f"  {res.steps_done} steps at P={opt.num_particles}, horizon {opt.horizon}: "
-          f"{1e3 * opt_s / res.steps_done:.2f} ms/step, cost {costs[0]:.3f} -> "
-          f"{costs[-1]:.3f}, launches {dict(fp.launches)}", flush=True)
-    learning_curve(agent, fp)
+    kernels = agent.gp._fused_structure() is not None
+    if (min(fp.launches.values()) > 0) != kernels or (max(fp.launches.values()) > 0) != kernels:
+        raise RuntimeError(f"the policy step's launches {fp.launches} do not match its kernel "
+                           f"structure {agent.gp._fused_structure()}")
+    print(f"  30 steps at P={opt.num_particles}, horizon {opt.horizon}: {ms_step:.2f} ms/step, "
+          f"cost {costs[0]:.3f} -> {costs[-1]:.3f} over {steps} steps, launches "
+          f"{dict(fp.launches)}", flush=True)
+    if profile:
+        top = ", ".join(f"{k[:40]} {v:.0f}" for k, v in list(p["events_by_kernel"].items())[:4])
+        print(f"  step profile: {p['host_ms']:.2f} host ms/step, device busy "
+              f"{p['busy_ms']:.2f} ms/step, device events per step {p['events']:.0f}, idle "
+              f"share {p['idle']:.3f}; most events per step: {top}", flush=True)
+    if kernels:
+        learning_curve(agent, fp)
 
 
 def learning_curve(agent, fp, steps=10):
@@ -559,7 +692,9 @@ def learning_curve(agent, fp, steps=10):
 
 
 def main_path(built, fp):
-    """``reinforce`` of a freshly built agent; returns its kernel launches."""
+    """``reinforce`` of a freshly built agent; returns its kernel launches:
+    both kernels on every launch-eligible path, none where the GP's kernel
+    structure has no fused kernel (the Furuta Sum(SE, Linear), SOR)."""
     agent, kwargs = built
     fp.reset_launches()
     logs = agent.reinforce(**kwargs)
@@ -569,18 +704,25 @@ def main_path(built, fp):
         c = lg.cost_history
         if lg.steps_done == 0 or not np.all(np.isfinite(c)):
             raise RuntimeError(f"trial {i}: {lg.steps_done} steps, costs {c}")
-    if min(launches.values()) == 0:
-        raise RuntimeError(f"the main path did not run both kernels: {launches}")
+    kernels = agent.gp.approx == "exact" and agent.gp._fused_structure() is not None
+    if (min(launches.values()) > 0) != kernels or (max(launches.values()) > 0) != kernels:
+        raise RuntimeError(f"the main path's launches {launches} do not match its kernel "
+                           f"structure {agent.gp._fused_structure()} ({agent.gp.approx})")
+    for i, lg in enumerate(logs):
+        print(f"  trial {i}: {lg.steps_done} steps, cost {lg.cost_history[0]:.3f} -> "
+              f"{lg.cost_history[-1]:.3f}, {1e3 * lg.wall_clock_s / lg.steps_done:.2f} ms/step",
+              flush=True)
     print(f"  launches in reinforce: {launches}", flush=True)
     return launches
 
 
-def profile_steps(run, host_repeats=1):
+def profile_steps(run, host_repeats=1, host_steps=10, window=5):
     """``run(n)`` runs an optimization of n steps (after its probe rollout)
-    and waits for the card.  Host ms/step from (run(11) - run(1)) / 10,
-    unprofiled, averaged over ``host_repeats`` (each in ``host_runs``);
+    and waits for the card.  Host ms/step from (run(host_steps + 1) -
+    run(1)) / host_steps, unprofiled, averaged over ``host_repeats`` (each
+    in ``host_runs``);
     device busy ms and device events per step, in all and per kernel name,
-    from torch.profiler's records over run(5) minus run(1); idle share
+    from torch.profiler's records over run(window) minus run(1); idle share
     1 - busy / host."""
     from collections import Counter
 
@@ -593,23 +735,23 @@ def profile_steps(run, host_repeats=1):
         t0 = time.perf_counter()
         run(1)
         t1 = time.perf_counter()
-        run(11)
-        host_runs.append(1e3 * (time.perf_counter() - t1 - (t1 - t0)) / 10)
+        run(host_steps + 1)
+        host_runs.append(1e3 * (time.perf_counter() - t1 - (t1 - t0)) / host_steps)
     host = sum(host_runs) / host_repeats
 
-    def window(n):
+    def profiled(n):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run(n)
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         return sum(e.time_range.elapsed_us() for e in events), Counter(e.name for e in events)
 
-    (us1, c1), (us5, c5) = window(1), window(5)
-    busy = 1e-3 * (us5 - us1) / 4
+    (us1, c1), (usn, cn) = profiled(1), profiled(window)
+    busy = 1e-3 * (usn - us1) / (window - 1)
     if busy <= 0:
         raise RuntimeError("torch.profiler recorded no device time for the optimizer steps")
-    by_kernel = {k: (c5[k] - c1[k]) / 4 for k in c5 | c1 if c5[k] != c1[k]}
+    by_kernel = {k: (cn[k] - c1[k]) / (window - 1) for k in cn | c1 if cn[k] != c1[k]}
     return dict(host_ms=host, host_runs=host_runs, busy_ms=busy,
-                events=(c5.total() - c1.total()) / 4, idle=1.0 - busy / host,
+                events=(cn.total() - c1.total()) / (window - 1), idle=1.0 - busy / host,
                 events_by_kernel=dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])))
 
 
@@ -629,7 +771,7 @@ def farm_phase(fp, dev):
     from mcpilco_tpu_torch.utils import prng
 
     S = FARM_SEEDS
-    cfg = cartpole.CartpoleConfig(seed=1, num_trials=2, opt_steps=(30, 30))
+    cfg = cartpole.CartpoleConfig(seed=1, num_trials=2, opt_steps=(10, 10), gp_epochs=500)
     agent, kwargs = cartpole.build(cfg, dev)
     farm = SeedFarm(agent, list(range(1, S + 1)),
                     policy_init_fn=lambda k: cartpole.policy_init(cfg, agent.policy, k, dev))
@@ -695,7 +837,8 @@ def restart_phase(fp, dev):
     """Phase 8: a 1-trial 4PMS ``reinforce`` with two restart lanes."""
     from mcpilco_tpu_torch.scenarios import cartpole_pms
 
-    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(50,), num_restarts=2)
+    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(20,), num_restarts=2,
+                                         gp_epochs=500)
     agent, kwargs = cartpole_pms.build(cfg, dev)
     launches = main_path((agent, kwargs), fp)
     log = agent.trial_logs[-1]
@@ -707,6 +850,63 @@ def restart_phase(fp, dev):
           f"{log.restart_winner}; particles per launch {2 * agent.optimizer.num_particles} "
           f"(the lanes share the posterior and fold into one K1/K2 call)", flush=True)
     return launches
+
+
+def sor_phase(fp, dev):
+    """Phase 11: the flagship cart-pole ``reinforce`` with the SOD posterior
+    replaced by SOR (wired as tests/test_sor.py wires it): relative
+    threshold 0.5 (the flagship SOD's), 200 refinement epochs with trained
+    inducing inputs; returns its launches (none: SOR has no kernel)."""
+    from mcpilco_tpu_torch.models.sod import SORConfig
+    from mcpilco_tpu_torch.scenarios import cartpole
+
+    cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(20,))
+    agent, kwargs = cartpole.build(cfg, dev)
+    agent.sod = None
+    agent.sor = SORConfig(threshold_mode="relative", threshold=(0.5,), refine_epochs=200,
+                          train_inducing=True)
+    agent.gp = dataclasses.replace(agent.gp, approx="sor")
+    agent.optimizer = dataclasses.replace(
+        agent.optimizer, engine=dataclasses.replace(agent.optimizer.engine, gp=agent.gp))
+    infos, fit = [], agent.fit_model
+    agent.fit_model = lambda opts: infos.append(fit(opts)) or infos[-1]
+    launches = main_path((agent, kwargs), fp)
+    info, log = infos[-1], agent.trial_logs[-1]
+    if not ("sor_points" in info and math.isfinite(info["sor_mll_last"])
+            and info["sor_mll_last"] <= info["sor_mll_first"]):
+        raise RuntimeError(f"SOR refinement: {info}")
+    if agent.posterior.x_tr.dim() != 3:
+        raise RuntimeError(f"trained inducing inputs should be per head, got "
+                           f"{tuple(agent.posterior.x_tr.shape)}")
+    print(f"  SOR: N={info['num_samples']}, inducing points {info['sor_points']} of "
+          f"{agent.posterior.x_tr.shape[1]} (per head, trained), SOR MLL "
+          f"{info['sor_mll_first']:.2f} -> {info['sor_mll_last']:.2f}; fit + selection + "
+          f"refinement {info['wall_clock_s']:.2f} s; {log.steps_done} steps at "
+          f"{1e3 * log.wall_clock_s / log.steps_done:.2f} ms/step", flush=True)
+    return launches
+
+
+def kernel_ab(fp, dev, root):
+    """K1/K2 of the checkout at ``root`` against this checkout's, built with
+    the same flags and timed in turns (root / this / this / root) at the
+    flagship and 4PMS shapes."""
+    from pathlib import Path
+
+    other, log = fp.build(Path(root) / "mcpilco_tpu_torch" / "csrc" / "fused_predict.cu")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print("  [other] " + line.strip(), flush=True)
+    mine = fp.build()[0]
+    rows = []
+    for turn in ("other", "this", "this", "other"):
+        fp.bind(other if turn == "other" else mine)
+        for use_poly, M in ((True, M_FLAGSHIP), (False, M_PMS)):
+            print(f"  [{turn}]", end="", flush=True)
+            t = time_kernels(fp, use_poly, M, dev)
+            rows.append(dict(build=turn, kind="se+p2" if use_poly else "se", M=M,
+                             k1_us=1e3 * t["k1_kernel"], k2_us=1e3 * t["k2_kernel"]))
+    fp.bind(mine)
+    print(json.dumps({"kernel_ab": rows, "other": str(root)}))
 
 
 def farm_sweep(fp, dev, sizes):
@@ -775,6 +975,10 @@ def main():
                         help="comma-separated seed counts: profile the farm's step instead")
     parser.add_argument("--step-profile", default=None, metavar="PATH",
                         help="profile the single-seed step of the checkout at PATH instead")
+    parser.add_argument("--kernel-ab", default=None, metavar="PATH",
+                        help="time K1/K2 of the checkout at PATH against this one's instead")
+    parser.add_argument("--phases", default=None,
+                        help="comma-separated phases 2-11 to run after the build (default all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's chip check has no CPU path",
@@ -789,11 +993,11 @@ def main():
         return 0
     from mcpilco_tpu_torch import disable_tf32
     from mcpilco_tpu_torch.ops import fused_predict as fp
-    from mcpilco_tpu_torch.scenarios import cartpole, cartpole_pms
+    from mcpilco_tpu_torch.scenarios import cartpole, cartpole_pms, furuta
 
     dev = torch.device("cuda", 0)
     disable_tf32()
-    card_facts()
+    smi = card_facts()
 
     t0 = time.perf_counter()
     path, log = fp.build()
@@ -810,42 +1014,86 @@ def main():
         phase("farm sweep", t0)
         print(json.dumps({"ok": True, "device": device}))
         return 0
+    if args.kernel_ab:
+        t0 = time.perf_counter()
+        kernel_ab(fp, dev, args.kernel_ab)
+        phase("kernel A/B", t0)
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
 
-    t0 = time.perf_counter()
-    rec = check_kernels(fp, dev)
-    time_predicts(dev)
-    phase("2 kernels against their plain versions", t0)
+    wanted = set(range(2, 12)) if args.phases is None else {int(v) for v in args.phases.split(",")}
+    paths, rec = [], None
+    if 2 in wanted:
+        t0 = time.perf_counter()
+        rec = check_kernels(fp, dev)
+        time_predicts(dev)
+        phase("2 kernels against their plain versions", t0)
 
-    t0 = time.perf_counter()
-    cfg = cartpole.CartpoleConfig(seed=1)
-    policy_step(cartpole.build(cfg, dev)[0], 6, cfg.T_exploration, fp, dev)
-    phase("3 flagship policy-optimization step", t0)
+    if 3 in wanted:
+        t0 = time.perf_counter()
+        cfg = cartpole.CartpoleConfig(seed=1)
+        policy_step(cartpole.build(cfg, dev)[0], 6, cfg.T_exploration, fp, dev)
+        phase("3 flagship policy-optimization step", t0)
 
-    t0 = time.perf_counter()
-    cfg = cartpole.CartpoleConfig(seed=1, num_trials=2, opt_steps=(30, 30))
-    paths = [main_path(cartpole.build(cfg, dev), fp)]
-    cfg = cartpole.CartpoleConfig(seed=1, multi_init=True, num_trials=1, opt_steps=(20,))
-    paths.append(main_path(cartpole.build(cfg, dev), fp))
-    phase("4 flagship main path: build + reinforce (2 trials; multi-init 1 trial)", t0)
+    if 4 in wanted:
+        t0 = time.perf_counter()
+        cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500)
+        paths.append(main_path(cartpole.build(cfg, dev), fp))
+        cfg = dataclasses.replace(cfg, multi_init=True)
+        paths.append(main_path(cartpole.build(cfg, dev), fp))
+        phase("4 flagship main path: build + reinforce (1 trial; multi-init 1 trial)", t0)
 
-    t0 = time.perf_counter()
-    cfg = cartpole_pms.CartpolePMSConfig(seed=1)
-    policy_step(cartpole_pms.build(cfg, dev)[0], 5, cfg.T_exploration, fp, dev, expect_m=M_PMS)
-    phase("5 4PMS policy-optimization step", t0)
+    if 5 in wanted:
+        t0 = time.perf_counter()
+        cfg = cartpole_pms.CartpolePMSConfig(seed=1)
+        policy_step(cartpole_pms.build(cfg, dev)[0], 5, cfg.T_exploration, fp, dev,
+                    expect_m=M_PMS)
+        phase("5 4PMS policy-optimization step", t0)
 
-    t0 = time.perf_counter()
-    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=2, opt_steps=(40, 40))
-    paths.append(main_path(cartpole_pms.build(cfg, dev), fp))
-    phase("6 4PMS main path: build + reinforce (2 trials)", t0)
+    if 6 in wanted:
+        t0 = time.perf_counter()
+        cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500)
+        paths.append(main_path(cartpole_pms.build(cfg, dev), fp))
+        phase("6 4PMS main path: build + reinforce (1 trial)", t0)
 
-    t0 = time.perf_counter()
-    paths.append(farm_phase(fp, dev))
-    phase(f"7 seed farm: {FARM_SEEDS} flagship seeds, 2 trials", t0)
+    if 7 in wanted:
+        t0 = time.perf_counter()
+        paths.append(farm_phase(fp, dev))
+        phase(f"7 seed farm: {FARM_SEEDS} flagship seeds, 2 trials", t0)
 
-    t0 = time.perf_counter()
-    paths.append(restart_phase(fp, dev))
-    phase("8 restart lanes: 4PMS reinforce with num_restarts=2", t0)
+    if 8 in wanted:
+        t0 = time.perf_counter()
+        paths.append(restart_phase(fp, dev))
+        phase("8 restart lanes: 4PMS reinforce with num_restarts=2", t0)
 
+    if 9 in wanted:
+        t0 = time.perf_counter()
+        cfg = furuta.FurutaConfig(seed=1)
+        print("  Furuta, semiparametric Sum(SE, Linear):", flush=True)
+        semi = furuta.build(cfg, dev)[0]
+        policy_step(semi, 2, cfg.T_exploration, fp, dev, expect_m=320, profile=True)
+        print("  Furuta, SE over 12 dims, on the same two trials:", flush=True)
+        policy_step(furuta.build(dataclasses.replace(cfg, semiparametric=False), dev)[0], 2,
+                    cfg.T_exploration, fp, dev, expect_m=320, profile=True, trials=semi.trials)
+        phase("9 Furuta policy-optimization step (semiparametric; SE at D=12)", t0)
+
+    if 10 in wanted:
+        t0 = time.perf_counter()
+        cfg = furuta.FurutaConfig(seed=1, num_trials=2, opt_steps=(20, 20))
+        paths.append(main_path(furuta.build(cfg, dev), fp))
+        cfg = dataclasses.replace(cfg, semiparametric=False, num_trials=1, opt_steps=(20,))
+        paths.append(main_path(furuta.build(cfg, dev), fp))
+        phase("10 Furuta main path: build + reinforce (2 trials; SE at D=12 1 trial)", t0)
+
+    if 11 in wanted:
+        t0 = time.perf_counter()
+        paths.append(sor_phase(fp, dev))
+        phase("11 SOR: flagship reinforce, 1 trial", t0)
+
+    print(smi, flush=True)  # again beside the results, for logs that keep only the end
+    if rec is None or wanted != set(range(2, 12)):
+        print(json.dumps({"ok": True, "device": device}))
+        return 0
     src = "mcpilco_tpu_torch/csrc/fused_predict.cu"
     kernels = [
         dict(name="fused_gram_contract (K1)", route="cuda", source=src,

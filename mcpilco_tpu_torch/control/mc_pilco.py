@@ -80,6 +80,7 @@ class MCPilco:
         plant=None,
         init_dist: Optional[InitialStateDistribution] = None,
         sod: Optional[sod_mod.SODConfig] = None,
+        sor: Optional[sod_mod.SORConfig] = None,
         offline_filtering: bool = False,
         offline_filter_cutoff: float = 0.5,
         offline_filter_method: str = "butter_cd",
@@ -103,6 +104,9 @@ class MCPilco:
         self.plant = plant
         self.init_dist = init_dist or optimizer.init_dist
         self.sod = sod
+        self.sor = sor
+        if sor is not None and gp.approx != "sor":
+            raise ValueError("sor config requires MultiGP(approx='sor')")
         # 4PMS model data: velocities re-estimated offline from the noisy
         # positions (envs.plants.offline_velocity_estimation)
         self.offline_filtering = offline_filtering
@@ -201,14 +205,16 @@ class MCPilco:
         return info
 
     def _build_posterior(self, data: GPData, info: Optional[dict] = None):
-        """Exact or SOD-subset posterior, retried with 10x / 100x jitter if
-        any posterior leaf is non-finite (an fp32 Cholesky can tip over on
-        near-noiseless heads)."""
-        gp0 = self.gp
+        """Exact, SOD-subset or SOR posterior, retried with 10x / 100x jitter
+        if any posterior leaf is non-finite (an fp32 Cholesky can tip over on
+        near-noiseless heads).  Each attempt starts from the fitted
+        ``gp_params``: the SOR refinement replaces them."""
+        gp0, params0 = self.gp, self.gp_params
         try:
             for scale in (1.0, 10.0, 100.0):
                 if scale > 1.0:
                     self.gp = gp0.scaled(scale)
+                    self.gp_params = params0
                 post = self._build_posterior_once(data, info)
                 if all(bool(torch.all(torch.isfinite(l))) for l in post):
                     if scale > 1.0:
@@ -223,10 +229,37 @@ class MCPilco:
         finally:
             self.gp = gp0
 
-    @torch.no_grad()
     def _build_posterior_once(self, data: GPData, info: Optional[dict] = None):
-        if self.sod is None:
+        if self.sod is not None:
+            with torch.no_grad():
+                return self._sod_posterior(data, info)
+        if self.sor is not None:
+            return self._sor_posterior(data, info)
+        with torch.no_grad():
             return self.gp.fit_posterior(self.gp_params, data)
+
+    def _sor_posterior(self, data: GPData, info: Optional[dict] = None):
+        """Greedy inducing selection, the optional SOR-MLL refinement of the
+        hyperparameters (and inducing inputs), then the SOR posterior."""
+        with torch.no_grad():
+            sel = sod_mod.select(self.gp, self.sor, self.gp_params, data.x, data.y, data.mask)
+        if info is not None:
+            info["sor_points"] = sel.sum(dim=-1).cpu().numpy().tolist()
+        u = None
+        if self.sor.refine_epochs:
+            self.gp_params, u_trained, losses = self.gp.fit_sor(
+                self.gp_params, data, sel, num_epochs=self.sor.refine_epochs,
+                learning_rate=self.sor.refine_lr, train_inducing=self.sor.train_inducing,
+            )
+            if self.sor.train_inducing:
+                u = u_trained
+            if info is not None:
+                info["sor_mll_first"] = float(losses[0])
+                info["sor_mll_last"] = float(losses[-1])
+        with torch.no_grad():
+            return self.gp.sor_posterior(self.gp_params, data, sel, u=u)
+
+    def _sod_posterior(self, data: GPData, info: Optional[dict] = None):
         sel = sod_mod.select(self.gp, self.sod, self.gp_params, data.x, data.y, data.mask)
         sel_np = sel.cpu().numpy() > 0.5
         if info is not None:

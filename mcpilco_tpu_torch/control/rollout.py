@@ -199,6 +199,32 @@ class RolloutEngine:
     sensors: Optional[PMSSensors] = None
     # per-particle state-cotangent norm cap applied once per step; None disables
     bptt_clip: Optional[float] = None
+    # cap on the predicted per-step delta in units of the largest training
+    # target (Posterior.norm): mean clipped to +-cap*norm, variance to
+    # (cap*norm)^2.  Kernels over unbounded features (the Furuta Linear
+    # member) grow mean and variance with ||feature||^2 off the data, and
+    # one particle that leaves it would blow up the closed-loop rollout; the
+    # cap binds only there.  Needs normalize_outputs; None disables.
+    delta_cap: Optional[float] = None
+
+    def __post_init__(self):
+        if self.delta_cap is not None and not self.gp.normalize_outputs:
+            raise ValueError(
+                "delta_cap is in units of Posterior.norm (the max-abs training target); "
+                "with MultiGP(normalize_outputs=False) norm is all-ones and the cap would "
+                f"bind at {self.delta_cap} absolute output units. Enable output "
+                "normalization or disable delta_cap."
+            )
+
+    def _predict(self, gp_params, posterior, gp_in):
+        """``gp.predict``, then the ``delta_cap`` clip; ``norm`` [*L, G]
+        broadcasts against the [*L, G, P] outputs (restart lanes share a
+        posterior: [G] against [R, G, P])."""
+        mean, var = self.gp.predict(gp_params, posterior, gp_in)
+        if self.delta_cap is None:
+            return mean, var
+        lim = self.delta_cap * posterior.norm[..., None]
+        return torch.clamp(mean, -lim, lim), torch.minimum(var, lim * lim)
 
     def draw_noise(self, key, num_particles: int, horizon: int, p_dropout, device,
                    dtype=torch.float32) -> RolloutNoise:
@@ -251,8 +277,7 @@ class RolloutEngine:
         for t in range(1, horizon):
             if self.bptt_clip is not None:
                 s = _clip_bptt(s, self.bptt_clip)
-            gp_in = self.model.gp_inputs(s, u)
-            mean, var = self.gp.predict(gp_params, posterior, gp_in)
+            mean, var = self._predict(gp_params, posterior, self.model.gp_inputs(s, u))
             s, _, _ = self.model.sample_next_state(
                 s, u, mean, var, particle_pred=particle_pred, eps=noise.state[t - 1]
             )
@@ -280,7 +305,7 @@ class RolloutEngine:
                 s = _clip_bptt(s, self.bptt_clip)
                 noisy_prev = _clip_bptt(noisy_prev, self.bptt_clip)
                 meas_vel_prev = _clip_bptt(meas_vel_prev, self.bptt_clip)
-            mean, var = self.gp.predict(gp_params, posterior, self.model.gp_inputs(s, u))
+            mean, var = self._predict(gp_params, posterior, self.model.gp_inputs(s, u))
             s, _, _ = self.model.sample_next_state(
                 s, u, mean, var, particle_pred=particle_pred, eps=noise.state[t - 1]
             )
@@ -301,7 +326,7 @@ class RolloutEngine:
         traj = [s0]
         for t in range(1, inputs.shape[0]):
             u = inputs[t - 1][None, :]
-            mean, var = self.gp.predict(gp_params, posterior, self.model.gp_inputs(s, u))
+            mean, var = self._predict(gp_params, posterior, self.model.gp_inputs(s, u))
             s, _, _ = self.model.sample_next_state(s, u, mean, var, particle_pred=False)
             traj.append(s[0])
         return torch.stack(traj)

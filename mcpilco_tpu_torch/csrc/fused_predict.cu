@@ -47,6 +47,17 @@
 // lane l of a launch is bitwise equal to a launch on lane l alone.  Every contraction is plain fp32
 // FMA: TF32 and bf16 splits break the posterior algebra's cancellation
 // (RESULTS.md, "Pallas fused-predict A/B").
+//
+// Input dims.  Up to NARROW_D = 8 dims (the cart-pole paths, D = 6) sit in
+// registers, padded to DP = 6 or 8.  Above that (the Furuta SE, D = 12;
+// UR5's SE+P(2), D = 24) five DP-float arrays per thread would spill, and
+// K2's dx* reduction buffer would outgrow the ring it reuses.  So the wide
+// instantiation (DP = MAX_D) keeps the particle rows and the per-head factors
+// in shared memory and walks the dims in chunks of DCH = 8: K1 accumulates
+// the distance and the polynomial dot products chunk by chunk; K2 first forms
+// the per-pair chain-rule scalars over every dim, then reduces dx* one chunk
+// of dims at a time through a DCH-wide buffer.  The GEMM mainloops and the
+// tiles are those of the narrow path, which stays as it was.
 
 #include <cuda_runtime.h>
 
@@ -54,7 +65,10 @@ namespace {
 
 constexpr int STAGES = 3;      // depth of the cp.async ring
 constexpr int TM = 4, TN = 4;  // register micro-tile of one thread
-constexpr int MAX_D = 8;       // input dims (padded to 6 or 8 in registers)
+constexpr int NARROW_D = 8;    // input dims held in registers (padded to 6 or 8)
+constexpr int MAX_D = 32;      // input dims of the wide path (padded to MAX_D)
+constexpr int DCH = 8;         // dims per chunk of the wide path
+static_assert(MAX_D % DCH == 0, "the wide path walks whole chunks of dims");
 
 // K1: BP particles x BN columns of F per block, BK training points a chunk.
 // SLICES groups of threads each cover the whole tile and take a slice of
@@ -175,6 +189,24 @@ __device__ __forceinline__ void gather_slices(float (&acc)[TM][TN], float* xch, 
       }
 }
 
+// Per-head factors of the wide path in shared memory: hw[q * DP + c] for
+// q = 0..3 is w, poly1, poly2a, poly2b at dim c (dims >= D zero).
+template <int DP, bool POLY, int T>
+__device__ __forceinline__ void stage_head_factors(float* hw, const Args& a, int g) {
+  const int D = a.D;
+  for (int e = threadIdx.x; e < 4 * DP; e += T) {
+    const int q = e / DP, c = e - q * DP;
+    float v = 0.f;
+    if (c < D) {
+      if (q == 0) v = a.se_w[g * D + c];
+      else if (POLY && q == 1) v = a.poly1[g * (D + 1) + c];
+      else if (POLY && q == 2) v = a.poly2a[g * D + c];
+      else if (POLY) v = a.poly2b[g * D + c];
+    }
+    hw[e] = v;
+  }
+}
+
 // K1.  Block (nt, pt, g): particles [pt*BP, +BP) x F's columns [nt*BN, +BN).
 // Thread (slice, ty, tx) accumulates rows ty*4..+4 and columns tx*4..+4 of
 // kF's tile over its slice of each chunk.
@@ -183,9 +215,13 @@ __global__ void __launch_bounds__(K1_THREADS)
 k1_forward(Args a, float* __restrict__ kalpha, float* __restrict__ qpart, float* __restrict__ kf) {
   constexpr int BP = K1_BP, BN = K1_BN, BK = K1_BK, T = K1_THREADS, TX = BN / TN;
   constexpr int SLICES = K1_SLICES, KS = BK / SLICES, RPS = TM / SLICES;
+  // the wide path's X rows get an odd pitch: the two chunk rows a warp reads
+  // at once fall in different banks
+  constexpr bool WIDE = DP > NARROW_D;
+  constexpr int XP = WIDE ? DP + 1 : DP;
   static_assert(SLICES * TM * TN * K1_TILE_T <= STAGES * BK * BN, "the slices' sum reuses the ring");
   __shared__ __align__(16) float Fs[STAGES][BK * BN];  // F chunk [kk][n]
-  __shared__ float Xs[STAGES][BK * DP];                // X chunk [kk][c], dims >= D zero
+  __shared__ float Xs[STAGES][BK * XP];                // X chunk [kk][c], dims >= D zero
   __shared__ float Ms[STAGES][BK], As[STAGES][BK];     // mask, alpha chunks
   __shared__ __align__(16) float ks[BK * BP];          // masked k chunk, transposed [kk][i]
   __shared__ float red[T];
@@ -201,8 +237,8 @@ k1_forward(Args a, float* __restrict__ kalpha, float* __restrict__ qpart, float*
   const float* mg = a.mask + (size_t)g * M;
   const float* ag = a.alpha + (size_t)g * M;
 
-  for (int e = tid; e < STAGES * BK * DP; e += T)
-    if (e % DP >= D) (&Xs[0][0])[e] = 0.f;  // never copied; visible after the first barrier
+  for (int e = tid; e < STAGES * BK * XP; e += T)
+    if (e % XP >= D) (&Xs[0][0])[e] = 0.f;  // never copied; visible after the first barrier
 
   auto load_stage = [&](int s, int chunk) {
     const int m0 = chunk * BK;
@@ -210,7 +246,7 @@ k1_forward(Args a, float* __restrict__ kalpha, float* __restrict__ qpart, float*
     for (int e = tid; e < BK * D; e += T) {
       const int kk = e / D;
       const bool ok = m0 + kk < M;
-      cp_async4(&Xs[s][kk * DP + e - kk * D], ok ? xt + (size_t)m0 * D + e : xt, ok);
+      cp_async4(&Xs[s][kk * XP + e - kk * D], ok ? xt + (size_t)m0 * D + e : xt, ok);
     }
     for (int e = tid; e < 2 * BK; e += T) {
       const int kk = e % BK;
@@ -220,50 +256,105 @@ k1_forward(Args a, float* __restrict__ kalpha, float* __restrict__ qpart, float*
     }
   };
 
-  // the particle row this thread generates k for, and its per-head factors
+  // the particle row this thread generates k for, and its per-head factors:
+  // in registers, or in the wide path in shared memory (rows [BP][XP], then
+  // the head factors)
   const int gi = tid % BP;
   const bool row_ok = p0 + gi < P;
-  float xi[DP], w[DP], u1[DP], ua[DP], ub[DP];
+  constexpr int DR = WIDE ? 1 : DP;
+  float xi[DR], w[DR], u1[DR], ua[DR], ub[DR];
+  float* rows = nullptr;
+  if constexpr (!WIDE) {
 #pragma unroll
-  for (int c = 0; c < DP; ++c) {
-    const bool in = c < D;
-    xi[c] = in && row_ok ? xs[(size_t)(p0 + gi) * D + c] : 0.f;
-    w[c] = in ? a.se_w[g * D + c] : 0.f;
-    if (POLY) {
-      u1[c] = in ? a.poly1[g * (D + 1) + c] * xi[c] : 0.f;
-      ua[c] = in ? a.poly2a[g * D + c] * xi[c] : 0.f;
-      ub[c] = in ? a.poly2b[g * D + c] * xi[c] : 0.f;
+    for (int c = 0; c < DP; ++c) {
+      const bool in = c < D;
+      xi[c] = in && row_ok ? xs[(size_t)(p0 + gi) * D + c] : 0.f;
+      w[c] = in ? a.se_w[g * D + c] : 0.f;
+      if (POLY) {
+        u1[c] = in ? a.poly1[g * (D + 1) + c] * xi[c] : 0.f;
+        ua[c] = in ? a.poly2a[g * D + c] * xi[c] : 0.f;
+        ub[c] = in ? a.poly2b[g * D + c] * xi[c] : 0.f;
+      }
     }
+  } else {
+    __shared__ float wide_rows[BP * XP + 4 * DP];  // visible after the first barrier
+    rows = wide_rows;
+    for (int e = tid; e < BP * XP; e += T) {
+      const int i = e / XP, c = e - i * XP;
+      rows[e] = c < D && p0 + i < P ? xs[(size_t)(p0 + i) * D + c] : 0.f;
+    }
+    stage_head_factors<DP, POLY, T>(rows + BP * XP, a, g);
   }
   const float lam = a.se_lam[g];
   const float p1off = POLY ? a.poly1[g * (D + 1) + D] : 0.f;
   float ka = 0.f;
 
   auto gen = [&](int s) {
+    if constexpr (!WIDE) {
 #pragma unroll
-    for (int j = 0; j < BK * BP / T; ++j) {
-      const int kk = tid / BP + j * (T / BP);
-      const float* xm = &Xs[s][kk * DP];
-      float d = 0.f;
-#pragma unroll
-      for (int c = 0; c < DP; ++c) {
-        const float df = xi[c] - xm[c];
-        d = fmaf(w[c] * df, df, d);
-      }
-      float k = lam * expf(-d);
-      if (POLY) {
-        float lin = p1off, a2 = 0.f, b2 = 0.f;
+      for (int j = 0; j < BK * BP / T; ++j) {
+        const int kk = tid / BP + j * (T / BP);
+        const float* xm = &Xs[s][kk * DP];
+        float d = 0.f;
 #pragma unroll
         for (int c = 0; c < DP; ++c) {
-          lin = fmaf(u1[c], xm[c], lin);
-          a2 = fmaf(ua[c], xm[c], a2);
-          b2 = fmaf(ub[c], xm[c], b2);
+          const float df = xi[c] - xm[c];
+          d = fmaf(w[c] * df, df, d);
         }
-        k += lin + a2 * b2;
+        float k = lam * expf(-d);
+        if (POLY) {
+          float lin = p1off, a2 = 0.f, b2 = 0.f;
+#pragma unroll
+          for (int c = 0; c < DP; ++c) {
+            lin = fmaf(u1[c], xm[c], lin);
+            a2 = fmaf(ua[c], xm[c], a2);
+            b2 = fmaf(ub[c], xm[c], b2);
+          }
+          k += lin + a2 * b2;
+        }
+        k = row_ok ? k * Ms[s][kk] : 0.f;
+        ks[kk * BP + gi] = k;
+        ka = fmaf(k, As[s][kk], ka);
       }
-      k = row_ok ? k * Ms[s][kk] : 0.f;
-      ks[kk * BP + gi] = k;
-      ka = fmaf(k, As[s][kk], ka);
+    } else {
+      // the same sums as the narrow path, dim chunk by dim chunk: each dim
+      // of the row is read once for the J training points of this thread
+      constexpr int J = BK * BP / T;
+      const float* xr = rows + gi * XP;
+      const float* hw = rows + BP * XP;
+      float d[J], lin[J], a2[J], b2[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) d[j] = 0.f, lin[j] = p1off, a2[j] = 0.f, b2[j] = 0.f;
+#pragma unroll 1
+      for (int c0 = 0; c0 < D; c0 += DCH) {
+#pragma unroll
+        for (int c = c0; c < c0 + DCH; ++c) {
+          const float x = xr[c], wc = hw[c];
+          const float q1 = POLY ? hw[DP + c] * x : 0.f;
+          const float qa = POLY ? hw[2 * DP + c] * x : 0.f;
+          const float qb = POLY ? hw[3 * DP + c] * x : 0.f;
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            const float xm = Xs[s][(tid / BP + j * (T / BP)) * XP + c];
+            const float df = x - xm;
+            d[j] = fmaf(wc * df, df, d[j]);
+            if (POLY) {
+              lin[j] = fmaf(q1, xm, lin[j]);
+              a2[j] = fmaf(qa, xm, a2[j]);
+              b2[j] = fmaf(qb, xm, b2[j]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int kk = tid / BP + j * (T / BP);
+        float k = lam * expf(-d[j]);
+        if (POLY) k += lin[j] + a2[j] * b2[j];
+        k = row_ok ? k * Ms[s][kk] : 0.f;
+        ks[kk * BP + gi] = k;
+        ka = fmaf(k, As[s][kk], ka);
+      }
     }
   };
 
@@ -356,9 +447,13 @@ k2_backward_xstar(Args a, const float* __restrict__ kf, const float* __restrict_
   constexpr int SLICES = K2_SLICES, KS = BK / SLICES, RPS = TM / SLICES;
   constexpr int PITCH = K2_PITCH, STAGE = (BP + BM) * PITCH;
   constexpr int XCH = SLICES > 1 ? SLICES * TM * TN * K2_TILE_T : 0;
-  static_assert(XCH + BP * TX * DP <= STAGES * STAGE, "the epilogue's buffers reuse the ring");
+  // the wide path reduces dx* DCH dims at a time; its x rows get an odd pitch
+  // (the rows a warp reads fall in different banks)
+  constexpr bool WIDE = DP > NARROW_D;
+  constexpr int XP = WIDE ? DP + 1 : DP, RD = WIDE ? DCH : DP;
+  static_assert(XCH + BP * TX * RD <= STAGES * STAGE, "the epilogue's buffers reuse the ring");
   __shared__ __align__(16) float ring[STAGES * STAGE];  // per stage: kF [BP][PITCH], F [BM][PITCH]
-  __shared__ float xs[BP * DP], g1s[BP], g2s[BP], Xs[BM * DP], als[BM], mks[BM];
+  __shared__ float xs[BP * XP], g1s[BP], g2s[BP], Xs[BM * XP], als[BM], mks[BM];
 
   // g: lane * G + head, as in K1
   const int M = a.M, D = a.D, P = a.P, g = blockIdx.z;
@@ -383,13 +478,19 @@ k2_backward_xstar(Args a, const float* __restrict__ kf, const float* __restrict_
   }
 
   // the epilogue's operands, staged while the first chunks arrive
-  for (int e = tid; e < BP * DP; e += T) {
-    const int i = e / DP, c = e - i * DP;
+  for (int e = tid; e < BP * XP; e += T) {
+    const int i = e / XP, c = e - i * XP;
     xs[e] = p0 + i < P && c < D ? xsl[(size_t)(p0 + i) * D + c] : 0.f;
   }
-  for (int e = tid; e < BM * DP; e += T) {
-    const int m = e / DP, c = e - m * DP;
+  for (int e = tid; e < BM * XP; e += T) {
+    const int m = e / XP, c = e - m * XP;
     Xs[e] = m0 + m < M && c < D ? xtl[(size_t)(m0 + m) * D + c] : 0.f;
+  }
+  float* hw = nullptr;  // the wide path's head factors (stage_head_factors)
+  if constexpr (WIDE) {
+    __shared__ float wide_head[4 * DP];
+    hw = wide_head;
+    stage_head_factors<DP, POLY, T>(hw, a, g);
   }
   for (int e = tid; e < BP; e += T) {
     const bool ok = p0 + e < P;
@@ -441,67 +542,141 @@ k2_backward_xstar(Args a, const float* __restrict__ kf, const float* __restrict_
 
   // chain rule for the (i, m) pairs of the slice's rows; points past M have
   // mask 0
-  float w[DP], p1[DP], pa[DP], pb[DP];
-#pragma unroll
-  for (int c = 0; c < DP; ++c) {
-    const bool in = c < D;
-    w[c] = in ? a.se_w[g * D + c] : 0.f;
-    if (POLY) {
-      p1[c] = in ? a.poly1[g * (D + 1) + c] : 0.f;
-      pa[c] = in ? a.poly2a[g * D + c] : 0.f;
-      pb[c] = in ? a.poly2b[g * D + c] : 0.f;
-    }
-  }
   const float lam = a.se_lam[g];
-  float part[TM][DP];
+  float* red = ring + XCH;  // the sums over the tile's points: red[i][tx][c]
+  if constexpr (!WIDE) {
+    float w[DP], p1[DP], pa[DP], pb[DP];
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    if (r / RPS != slice) continue;
-    const int i = ty * TM + r;
-    const float* xi = xs + i * DP;
-    const float h1 = g1s[i], h2 = 2.f * g2s[i];
+    for (int c = 0; c < DP; ++c) {
+      const bool in = c < D;
+      w[c] = in ? a.se_w[g * D + c] : 0.f;
+      if (POLY) {
+        p1[c] = in ? a.poly1[g * (D + 1) + c] : 0.f;
+        pa[c] = in ? a.poly2a[g * D + c] : 0.f;
+        pb[c] = in ? a.poly2b[g * D + c] : 0.f;
+      }
+    }
+    float part[TM][DP];
 #pragma unroll
-    for (int c = 0; c < DP; ++c) part[r][c] = 0.f;
+    for (int r = 0; r < TM; ++r) {
+      if (r / RPS != slice) continue;
+      const int i = ty * TM + r;
+      const float* xi = xs + i * DP;
+      const float h1 = g1s[i], h2 = 2.f * g2s[i];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int m = tx + j * TX;
-      const float* xm = Xs + m * DP;
-      const float kbar = (h1 * als[m] + h2 * acc[r][j]) * mks[m];
-      float d = 0.f, a2 = 0.f, b2 = 0.f;
+      for (int c = 0; c < DP; ++c) part[r][c] = 0.f;
 #pragma unroll
-      for (int c = 0; c < DP; ++c) {
-        const float df = xi[c] - xm[c];
-        d = fmaf(w[c] * df, df, d);
-        if (POLY) {
-          const float xx = xi[c] * xm[c];
-          a2 = fmaf(pa[c], xx, a2);
-          b2 = fmaf(pb[c], xx, b2);
+      for (int j = 0; j < TN; ++j) {
+        const int m = tx + j * TX;
+        const float* xm = Xs + m * DP;
+        const float kbar = (h1 * als[m] + h2 * acc[r][j]) * mks[m];
+        float d = 0.f, a2 = 0.f, b2 = 0.f;
+#pragma unroll
+        for (int c = 0; c < DP; ++c) {
+          const float df = xi[c] - xm[c];
+          d = fmaf(w[c] * df, df, d);
+          if (POLY) {
+            const float xx = xi[c] * xm[c];
+            a2 = fmaf(pa[c], xx, a2);
+            b2 = fmaf(pb[c], xx, b2);
+          }
+        }
+        const float dbar2 = -2.f * kbar * lam * expf(-d);  // 2 * dbar
+#pragma unroll
+        for (int c = 0; c < DP; ++c) {
+          float v = w[c] * dbar2 * (xi[c] - xm[c]);
+          if (POLY) v = fmaf(kbar * xm[c], p1[c] + pa[c] * b2 + pb[c] * a2, v);
+          part[r][c] += v;
         }
       }
-      const float dbar2 = -2.f * kbar * lam * expf(-d);  // 2 * dbar
+    }
+
+    // sum over the tile's points: red[i][tx][c], then TX values per (i, c)
 #pragma unroll
-      for (int c = 0; c < DP; ++c) {
-        float v = w[c] * dbar2 * (xi[c] - xm[c]);
-        if (POLY) v = fmaf(kbar * xm[c], p1[c] + pa[c] * b2 + pb[c] * a2, v);
-        part[r][c] += v;
+    for (int r = 0; r < TM; ++r)
+      if (r / RPS == slice)
+#pragma unroll
+        for (int c = 0; c < DP; ++c) red[((ty * TM + r) * TX + tx) * DP + c] = part[r][c];
+    __syncthreads();
+    for (int e = tid; e < BP * D; e += T) {
+      const int i = e / D, c = e - i * D;
+      if (p0 + i >= P) continue;
+      float s = 0.f;
+      for (int t = 0; t < TX; ++t) s += red[(i * TX + t) * DP + c];
+      dxp[(((size_t)g * gridDim.x + mt) * P + p0 + i) * D + c] = s;
+    }
+  } else {
+    // the pair's scalars need every dim: dbar2 = 2 dbar, and for the
+    // polynomial terms kbar, kbar b2, kbar a2
+    float sd[TM][TN], sk[TM][TN], sa[TM][TN], sb[TM][TN];
+#pragma unroll
+    for (int r = 0; r < TM; ++r) {
+      if (r / RPS != slice) continue;
+      const int i = ty * TM + r;
+      const float* xi = xs + i * XP;
+      const float h1 = g1s[i], h2 = 2.f * g2s[i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int m = tx + j * TX;
+        const float* xm = Xs + m * XP;
+        const float kbar = (h1 * als[m] + h2 * acc[r][j]) * mks[m];
+        float d = 0.f, a2 = 0.f, b2 = 0.f;
+#pragma unroll 1
+        for (int c0 = 0; c0 < D; c0 += DCH) {
+#pragma unroll
+          for (int c = c0; c < c0 + DCH; ++c) {
+            const float df = xi[c] - xm[c];
+            d = fmaf(hw[c] * df, df, d);
+            if (POLY) {
+              const float xx = xi[c] * xm[c];
+              a2 = fmaf(hw[2 * DP + c], xx, a2);
+              b2 = fmaf(hw[3 * DP + c], xx, b2);
+            }
+          }
+        }
+        sd[r][j] = -2.f * kbar * lam * expf(-d);
+        sk[r][j] = kbar;
+        sa[r][j] = kbar * b2;
+        sb[r][j] = kbar * a2;
       }
     }
-  }
-
-  // sum over the tile's points: red[i][tx][c], then TX values per (i, c)
-  float* red = ring + XCH;
+    // then dx* one chunk of dims at a time, through a DCH-wide buffer
+#pragma unroll 1
+    for (int c0 = 0; c0 < D; c0 += DCH) {
 #pragma unroll
-  for (int r = 0; r < TM; ++r)
-    if (r / RPS == slice)
+      for (int r = 0; r < TM; ++r) {
+        if (r / RPS != slice) continue;
+        const int i = ty * TM + r;
+        const float* xi = xs + i * XP + c0;
+        const float* h = hw + c0;
+        float part[DCH];
 #pragma unroll
-      for (int c = 0; c < DP; ++c) red[((ty * TM + r) * TX + tx) * DP + c] = part[r][c];
-  __syncthreads();
-  for (int e = tid; e < BP * D; e += T) {
-    const int i = e / D, c = e - i * D;
-    if (p0 + i >= P) continue;
-    float s = 0.f;
-    for (int t = 0; t < TX; ++t) s += red[(i * TX + t) * DP + c];
-    dxp[(((size_t)g * gridDim.x + mt) * P + p0 + i) * D + c] = s;
+        for (int c = 0; c < DCH; ++c) part[c] = 0.f;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const float* xm = Xs + (tx + j * TX) * XP + c0;
+#pragma unroll
+          for (int c = 0; c < DCH; ++c) {
+            float v = h[c] * sd[r][j] * (xi[c] - xm[c]);
+            if (POLY)
+              v = fmaf(xm[c], sk[r][j] * h[DP + c] + sa[r][j] * h[2 * DP + c] +
+                                  sb[r][j] * h[3 * DP + c], v);
+            part[c] += v;
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < DCH; ++c) red[(i * TX + tx) * DCH + c] = part[c];
+      }
+      __syncthreads();
+      for (int e = tid; e < BP * DCH; e += T) {
+        const int i = e / DCH, c = e - i * DCH;
+        if (p0 + i >= P || c0 + c >= D) continue;
+        float s = 0.f;
+        for (int q = 0; q < TX; ++q) s += red[(i * TX + q) * DCH + c];
+        dxp[(((size_t)g * gridDim.x + mt) * P + p0 + i) * D + c0 + c] = s;
+      }
+      __syncthreads();  // red is written again by the next chunk
+    }
   }
 }
 
@@ -570,9 +745,12 @@ int fp_forward(const float* se_w, const float* se_lam, const float* poly1, const
   if (D <= 6) {
     if (use_poly) launch_k1<6, true>(a, L, kalpha, qpart, kf, s);
     else launch_k1<6, false>(a, L, kalpha, qpart, kf, s);
+  } else if (D <= NARROW_D) {
+    if (use_poly) launch_k1<NARROW_D, true>(a, L, kalpha, qpart, kf, s);
+    else launch_k1<NARROW_D, false>(a, L, kalpha, qpart, kf, s);
   } else {
-    if (use_poly) launch_k1<8, true>(a, L, kalpha, qpart, kf, s);
-    else launch_k1<8, false>(a, L, kalpha, qpart, kf, s);
+    if (use_poly) launch_k1<MAX_D, true>(a, L, kalpha, qpart, kf, s);
+    else launch_k1<MAX_D, false>(a, L, kalpha, qpart, kf, s);
   }
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
@@ -594,9 +772,12 @@ int fp_backward_xstar(const float* se_w, const float* se_lam, const float* poly1
   if (D <= 6) {
     if (use_poly) launch_k2<6, true>(a, L, kf, g1, g2, dxp, s);
     else launch_k2<6, false>(a, L, kf, g1, g2, dxp, s);
+  } else if (D <= NARROW_D) {
+    if (use_poly) launch_k2<NARROW_D, true>(a, L, kf, g1, g2, dxp, s);
+    else launch_k2<NARROW_D, false>(a, L, kf, g1, g2, dxp, s);
   } else {
-    if (use_poly) launch_k2<8, true>(a, L, kf, g1, g2, dxp, s);
-    else launch_k2<8, false>(a, L, kf, g1, g2, dxp, s);
+    if (use_poly) launch_k2<MAX_D, true>(a, L, kf, g1, g2, dxp, s);
+    else launch_k2<MAX_D, false>(a, L, kf, g1, g2, dxp, s);
   }
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;

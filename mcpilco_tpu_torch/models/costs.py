@@ -9,10 +9,12 @@ sum_t std_particles(c_t)), as ``mcpilco_tpu/models/costs.py`` does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from .kernels import _as_tuple
 
 
 def expected_cost(stage: torch.Tensor):
@@ -33,6 +35,52 @@ class CostBase:
 
     def __call__(self, states, inputs, trial_index=0):
         return expected_cost(self.stage_costs(states, inputs, trial_index))
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadraticDistance(CostBase):
+    """Squared lengthscale-weighted distance to a target state over
+    ``active_dims``; ``abs_dims`` are taken |.| of first, which makes +target
+    and -target equivalent for angle dims."""
+
+    target_state: Tuple[float, ...]
+    lengthscales: Tuple[float, ...]
+    active_dims: Optional[Tuple[int, ...]] = None
+    abs_dims: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        object.__setattr__(
+            self, "target_state", tuple(float(v) for v in np.asarray(self.target_state, float))
+        )
+        object.__setattr__(
+            self, "lengthscales",
+            tuple(float(v) for v in np.asarray(self.lengthscales, float).reshape(-1)),
+        )
+        object.__setattr__(self, "active_dims", _as_tuple(self.active_dims))
+        object.__setattr__(self, "abs_dims", _as_tuple(self.abs_dims))
+
+    def _dist(self, states):
+        if self.abs_dims is not None:
+            ab = torch.zeros(states.shape[-1], dtype=torch.bool, device=states.device)
+            ab[list(self.abs_dims)] = True
+            states = torch.where(ab, torch.abs(states), states)
+        if self.active_dims is not None:
+            states = states[..., list(self.active_dims)]
+        ls = torch.as_tensor(self.lengthscales, dtype=states.dtype, device=states.device)
+        tgt = torch.as_tensor(self.target_state, dtype=states.dtype, device=states.device)
+        d = (states - tgt) / ls
+        return torch.sum(d * d, dim=-1)
+
+    def stage_costs(self, states, inputs, trial_index=0):
+        return self._dist(states)
+
+
+@dataclasses.dataclass(frozen=True)
+class SaturatedDistance(QuadraticDistance):
+    """1 - exp(-squared weighted distance)."""
+
+    def stage_costs(self, states, inputs, trial_index=0):
+        return 1.0 - torch.exp(-self._dist(states))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,6 +6,12 @@ build training sets and inside the rollout (``mcpilco_tpu/models/dynamics.py``):
 - ``gp_inputs(states, inputs) -> [.., D_gp]`` feature map
 - ``gp_targets(states) -> [G, N-1]`` per-head regression targets
 - ``next_state(state, input, delta) -> state'``
+
+Families: :class:`DeltaState` (one head per state dim), :class:`DeltaStateAngles`
+(the same with sin/cos-extended inputs), :class:`SpeedIntegration` (heads
+predict velocity deltas, positions integrate by trapezoid) and
+:class:`FurutaSemiparametric` (speed integration with the Furuta pendulum's
+physics features appended to the GP input).
 """
 
 from __future__ import annotations
@@ -76,6 +82,48 @@ def _angle_extend(states, angle_idx, not_angle_idx):
 
 
 @dataclasses.dataclass(frozen=True)
+class DeltaState(DynamicsModel):
+    """One GP head per state dim predicting s_{t+1} - s_t."""
+
+    state_dim: int
+    input_dim: int
+
+    @property
+    def num_heads(self) -> int:
+        return self.state_dim
+
+    @property
+    def gp_input_dim(self) -> int:
+        return self.state_dim + self.input_dim
+
+    def gp_targets(self, states):
+        return (states[1:] - states[:-1]).T
+
+    def next_state(self, state, inp, delta):
+        return state + delta
+
+
+@dataclasses.dataclass(frozen=True)
+class DeltaStateAngles(DeltaState):
+    """Delta-state model with sin/cos-extended GP inputs."""
+
+    angle_indices: Tuple[int, ...] = ()
+    not_angle_indices: Tuple[int, ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "angle_indices", _as_tuple(self.angle_indices) or ())
+        object.__setattr__(self, "not_angle_indices", _as_tuple(self.not_angle_indices) or ())
+
+    @property
+    def gp_input_dim(self) -> int:
+        return len(self.not_angle_indices) + 2 * len(self.angle_indices) + self.input_dim
+
+    def gp_inputs(self, states, inputs):
+        ext = _angle_extend(states, self.angle_indices, self.not_angle_indices)
+        return torch.cat([ext, inputs], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
 class SpeedIntegration(DynamicsModel):
     """Speed-integration model: ``len(vel_indices)`` GPs predict velocity
     deltas dv; the next state is v' = v + dv, p' = p + Ts v + Ts/2 dv, where
@@ -128,3 +176,30 @@ class SpeedIntegration(DynamicsModel):
         nxt[:, vel] = v + delta
         nxt[:, pos] = state[:, pos] + self.dt * v + 0.5 * self.dt * delta
         return nxt.reshape(shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class FurutaSemiparametric(SpeedIntegration):
+    """Furuta-pendulum semiparametric model: state [theta_h, theta_v,
+    dtheta_h, dtheta_v]; the GP input is [state, input] followed by the seven
+    physics-derived features of the forward dynamics, meant to pair with a
+    Sum(SEArd, Linear) kernel."""
+
+    @property
+    def gp_input_dim(self) -> int:
+        return self.state_dim + self.input_dim + 7
+
+    def gp_inputs(self, states, inputs):
+        th_v, dth_h, dth_v = states[..., 1:2], states[..., 2:3], states[..., 3:4]
+        sin_v, sin_2v = torch.sin(th_v), torch.sin(2.0 * th_v)
+        return torch.cat([
+            states,
+            inputs,
+            sin_v * dth_v**2,
+            dth_h * dth_v * sin_2v,
+            dth_h,
+            dth_h**2 * sin_2v,
+            dth_v,
+            sin_v,
+            inputs * torch.cos(th_v),
+        ], dim=-1)

@@ -93,13 +93,22 @@ def _leaves(tree):
     return out
 
 
+def posterior_log_likelihood(y, y_hat, var):
+    """Diagonal-Gaussian negative log-likelihood of held-out targets under
+    predicted means and variances (constants dropped)."""
+    return torch.sum((y - y_hat) ** 2 / (2.0 * var) + 0.5 * torch.log(var))
+
+
 @dataclasses.dataclass(frozen=True)
 class MultiGP:
-    """Static config for a stack of ``num_heads`` exact GPs with a shared
-    kernel structure and per-head measurement noise."""
+    """Static config for a stack of ``num_heads`` GPs with a shared kernel
+    structure and per-head measurement noise: exact GPs, or with
+    ``approx='sor'`` the Subset-of-Regressors approximation (``sor_*``)."""
 
     kernel: K.Kernel
     num_heads: int
+    # inference mode: 'exact' (SOD subsets included) or 'sor'
+    approx: str = "exact"
     # relative diagonal jitter (see mcpilco_tpu/models/gp.py:125-129)
     jitter: float = 1e-4
     train_sigma_n: bool = True
@@ -144,7 +153,10 @@ class MultiGP:
         return Kx + noise[..., None, None] * eye
 
     def _mean(self, kparams, x):
-        """Prior mean at x [*L, N, D] for every head: [*L, G, N]."""
+        """Prior mean at x [*L, N, D] for every head: [*L, G, N].  The kernel
+        gives [*L, 1, N] when its mean has no per-head parameter (SE's
+        constant, a zero mean) and [*L, G, N] when it has (Linear's
+        ``mean_w``, a Scaled or Product of them)."""
         m = self.kernel.mean(kparams, self._hx(x))
         return m.expand(*x.shape[:-2], self.num_heads, x.shape[-2])
 
@@ -269,17 +281,17 @@ class MultiGP:
         without lanes (restart lanes, which share one posterior) is folded
         into R * P particles of one call and returns [R, G, P].  On the card,
         the 'se' and 'se+p2' structures run the fused kernels; every other
-        case, and every CPU tensor, runs the plain batched ops.
+        case, and every CPU tensor, runs the plain batched ops.  SOR
+        posteriors go to :meth:`sor_predict` (no kernel, no lanes).
         """
+        if self.approx == "sor":
+            return self.sor_predict(params, post, x_star)
         fold = x_star.dim() - post.x_tr.dim()
         if fold:
             if post.x_tr.dim() != 2 or fold != 1:
                 raise ValueError(f"x_star {tuple(x_star.shape)} does not match the posterior's "
                                  f"x_tr {tuple(post.x_tr.shape)}")
-            R, P, D = x_star.shape
-            mean, var = self.predict(params, post, x_star.reshape(R * P, D))
-            unfold = lambda t: t.reshape(-1, R, P).transpose(0, 1)
-            return unfold(mean), unfold(var)
+            return _folded(self.predict, params, post, x_star)
         if x_star.is_cuda and self._fused_structure() is not None:
             return self._predict_fused(params, post, x_star)
         return self._predict_plain(params, post, x_star)
@@ -355,6 +367,151 @@ class MultiGP:
         )
         mean = self._mean(kp, x_star) + kalpha
         return self._epilogue(kp, post, x_star, mean, quad)
+
+    # ---------------- Subset-of-Regressors approximation ----------------
+    # SOR replaces k(x, x') by k(x, U) K_UU^-1 k(U, x') for an inducing set U
+    # (mcpilco_tpu/models/gp.py:439-636).  Its posterior reuses Posterior:
+    # x_tr = U ([N, D] rows of the data, or trained per-head [G, M, D]),
+    # mask = the selection [G, M], alpha = the SOR coefficients and
+    # var_factor = F with Sigma = (K_UU + sigma_n^-2 K_UX K_XU)^-1 = F F^T;
+    #     mean* = m* + k(*, U) alpha,   var* = sum((k(*, U) F)^2),
+    # floored at jitter * k**_diag.  The variance is the quad term itself,
+    # not diag - quad, so SOR has its own predict.  No lane axis: the seed
+    # farm refuses SOR.
+
+    def _noise_var(self, log_sigma_n):
+        return torch.exp(2.0 * log_sigma_n) + self.jitter
+
+    def _hu(self, u):
+        """Inducing inputs with a head axis: shared [M, D] as [1, M, D], or
+        per head [G, M, D] as they are."""
+        return u if u.dim() == 3 else self._hx(u)
+
+    def _sor_cross(self, kp, data: GPData, hu, sel):
+        """K_XU [G, N, M] masked by the data and the selection."""
+        K_xu = self.kernel.gram(kp, self._hx(data.x), hu)
+        return K_xu * (data.mask[:, None] * sel[..., None, :])
+
+    def _resid(self, kp, data: GPData, norm):
+        return (data.y / norm[..., None] - self._mean(kp, data.x)) * data.mask
+
+    def sor_posterior(self, params: GPParams, data: GPData, sel, u=None) -> Posterior:
+        """The SOR posterior: ``sel`` [G, M] marks valid inducing rows; ``u``
+        [G, M, D] overrides the inducing inputs (default: the rows of
+        ``data.x``, M = N)."""
+        kp = params.kernel
+        norm = self.output_norms(data)
+        noise = self._noise_var(params.log_sigma_n)[:, None, None]
+        hu = self._hu(data.x if u is None else u)
+        m2 = sel[..., :, None] * sel[..., None, :]
+        K_xu = self._sor_cross(kp, data, hu, sel)
+        sigma_inv = self.kernel.gram(kp, hu, hu) * m2 + (K_xu.mT @ K_xu) / noise
+        # the jitter tracks sigma_inv's own scale (~ sigma_n^-2 N k^2)
+        jit = linalg.adaptive_jitter(sigma_inv, sel, rel=self.jitter, floor=self.jitter)
+        sigma_inv = sigma_inv + jit[:, None, None] * torch.diag_embed(sel)
+        L = linalg.masked_cholesky(sigma_inv, sel)
+        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
+        F = torch.linalg.solve_triangular(L, eye, upper=False).mT * m2
+        rhs = K_xu.mT @ self._resid(kp, data, norm)[..., None]
+        alpha = linalg.chol_solve(L, rhs)[..., 0] / noise[..., 0]
+        return Posterior(x_tr=data.x if u is None else u, mask=sel, alpha=alpha * sel,
+                         var_factor=F, norm=norm)
+
+    def sor_mll(self, params: GPParams, data: GPData, sel, u=None, norm=None):
+        """Sum over heads of the negative SOR (Nystrom) marginal
+        log-likelihood, in whitened form: with K_UU = L L^T, B = L^-1 K_UX
+        and A = I + B B^T / s2,
+            log|K_sor| = N log s2 + log|A|,
+            y^T K_sor^-1 y = |y|^2 / s2 - (By)^T A^-1 (By) / s2^2.
+        Equals :meth:`mll` when the inducing set is the whole dataset."""
+        kp = params.kernel
+        if norm is None:
+            norm = self.output_norms(data)
+        noise = self._noise_var(params.log_sigma_n)
+        hu = self._hu(data.x if u is None else u)
+        m = hu.shape[-2]
+        eye = torch.eye(m, dtype=data.x.dtype, device=data.x.device)
+        K_uu = self.kernel.gram(kp, hu, hu).expand(self.num_heads, m, m)
+        jit = linalg.adaptive_jitter(K_uu, sel, rel=self.jitter, floor=self.jitter)
+        L_uu = linalg.masked_cholesky(K_uu + jit[:, None, None] * eye, sel)
+        B = torch.linalg.solve_triangular(L_uu, self._sor_cross(kp, data, hu, sel).mT,
+                                          upper=False)  # [G, M, N]
+        # A's unselected rows are identity rows, so the masked factor is A's own
+        L_a = linalg.masked_cholesky(eye + (B @ B.mT) / noise[:, None, None], sel)
+        logdet_a = linalg.masked_logdet_from_chol(L_a, sel)
+        resid = self._resid(kp, data, norm)
+        b = (B @ resid[..., None])[..., 0]
+        w = linalg.chol_solve(L_a, b[..., None])[..., 0]
+        quad = (torch.sum(resid * resid, dim=-1) / noise
+                - torch.sum(b * w, dim=-1) / (noise * noise))
+        logdet = torch.sum(data.mask) * torch.log(noise) + logdet_a
+        return torch.sum(0.5 * (quad + logdet))
+
+    def fit_sor(self, params: GPParams, data: GPData, sel, num_epochs: int,
+                learning_rate: float = 0.01, train_inducing: bool = False, u=None):
+        """Full-batch Adam (optax.adam semantics) on :meth:`sor_mll`, frozen
+        leaves held fixed; with ``train_inducing`` the inducing inputs ``u``
+        (default: ``data.x`` copied per head) train too.  A step whose loss
+        is non-finite keeps the last iterate and optimizer state
+        (mcpilco_tpu/models/gp.py:601-611; not the exact fit's backtracking).
+
+        Returns (params, u [G, M, D], loss_history [num_epochs]).
+        """
+        norm = self.output_norms(data)
+        if u is None:
+            u = data.x.expand(self.num_heads, *data.x.shape)
+        leaves = [l.detach().clone() for l in _leaves(params)] + [u.detach().clone()]
+        trainable = [bool(m) for m in _leaves(self.param_mask(params))] + [bool(train_inducing)]
+        idx = [i for i, t in enumerate(trainable) if t]
+        mu = [torch.zeros_like(leaves[i]) for i in idx]
+        nu = [torch.zeros_like(leaves[i]) for i in idx]
+        b1, b2, eps = 0.9, 0.999, 1e-8
+        opts = dict(dtype=data.x.dtype, device=data.x.device)
+        count, last = torch.zeros((), **opts), torch.tensor(math.inf, **opts)
+        history = []
+        for _ in range(num_epochs):
+            cur = [t.detach().requires_grad_(tr) for t, tr in zip(leaves, trainable)]
+            loss = self.sor_mll(_unflatten(params, cur[:-1]), data, sel, u=cur[-1], norm=norm)
+            grads = torch.autograd.grad(loss, [cur[i] for i in idx])
+            with torch.no_grad():
+                finite = torch.isfinite(loss)
+                cnt = count + 1
+                bc1, bc2 = 1 - b1**cnt, 1 - b2**cnt
+                for j, (i, g) in enumerate(zip(idx, grads)):
+                    m_new = b1 * mu[j] + (1 - b1) * g
+                    v_new = b2 * nu[j] + (1 - b2) * g * g
+                    upd = -learning_rate * (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+                    leaves[i] = torch.where(finite, cur[i].detach() + upd, cur[i].detach())
+                    mu[j] = torch.where(finite, m_new, mu[j])
+                    nu[j] = torch.where(finite, v_new, nu[j])
+                count = torch.where(finite, cnt, count)
+                last = torch.where(finite, loss, last)
+                history.append(last)
+        return _unflatten(params, leaves[:-1]), leaves[-1], torch.stack(history)
+
+    def sor_predict(self, params: GPParams, post: Posterior, x_star):
+        """SOR (mean, var) at ``x_star`` [P, D]: [G, P] each, for a shared
+        ``post.x_tr`` [M, D] or per-head inducing inputs [G, M, D].  Restart
+        lanes' ``x_star`` [R, P, D] fold into R * P particles: [R, G, P]."""
+        if x_star.dim() == 3:
+            return _folded(self.sor_predict, params, post, x_star)
+        kp = params.kernel
+        k_star = self.kernel.gram(kp, self._hx(x_star), self._hu(post.x_tr))
+        k_star = k_star * post.mask[..., None, :]
+        mean = self._mean(kp, x_star) + torch.einsum("gpm,gm->gp", k_star, post.alpha)
+        kf = torch.matmul(k_star, post.var_factor)
+        diag = self.kernel.diag(kp, self._hx(x_star)).expand(self.num_heads, x_star.shape[-2])
+        var = torch.maximum(torch.sum(kf * kf, dim=-1), self.jitter * diag)
+        return mean * post.norm[:, None], var * (post.norm**2)[:, None]
+
+
+def _folded(predict, params, post, x_star):
+    """``predict`` of x* [R, P, D] against one posterior (restart lanes) as
+    one call on R * P particles: (mean, var) [R, G, P]."""
+    R, P, D = x_star.shape
+    mean, var = predict(params, post, x_star.reshape(R * P, D))
+    unfold = lambda t: t.reshape(-1, R, P).transpose(0, 1)
+    return unfold(mean), unfold(var)
 
 
 def _unflatten(structure, leaves):

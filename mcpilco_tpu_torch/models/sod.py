@@ -41,6 +41,18 @@ class SODConfig:
         return t * torch.ones(gp.num_heads, dtype=sigma_n.dtype, device=sigma_n.device)
 
 
+@dataclasses.dataclass(frozen=True)
+class SORConfig(SODConfig):
+    """SOD selection options plus the SOR refinement stage: after the exact
+    MLL fit and the greedy inducing selection, optionally re-train the
+    hyperparameters (and, with ``train_inducing``, the inducing inputs)
+    against the SOR MLL for ``refine_epochs`` (``MultiGP.fit_sor``)."""
+
+    refine_epochs: int = 0
+    refine_lr: float = 0.01
+    train_inducing: bool = False
+
+
 def select(gp: MultiGP, config: SODConfig, params: GPParams, x: torch.Tensor,
            y: torch.Tensor, valid_mask: torch.Tensor) -> torch.Tensor:
     """Per-head SOD selection masks [G, N] over the shared dataset, visiting

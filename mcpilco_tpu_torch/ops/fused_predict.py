@@ -41,7 +41,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_predict.cu"
 BUILD_DIR = _PKG / "_build"
-MAX_D = 8  # input dims the kernels take (csrc MAX_D)
+MAX_D = 32  # input dims the kernels take (csrc MAX_D; above 8 they walk chunks of 8)
 
 # Kernel launches by the wrappers below, one per launch, and the lanes those
 # launches carried (L per launch).
@@ -65,13 +65,15 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def build():
-    """Compile the kernels unless this source is already built.
+def build(source=SOURCE):
+    """Compile the kernels of ``source`` (this checkout's by default) unless
+    that source is already built.
 
     Returns ``(path of the shared library, compiler log)``; the log holds
     ``ptxas``'s register and shared-memory report when a build ran.
     """
-    src = SOURCE.read_bytes()
+    source = Path(source)
+    src = source.read_bytes()
     out = BUILD_DIR / f"libfused_predict_{hashlib.sha256(src).hexdigest()[:16]}.so"
     if out.exists():
         return out, ""
@@ -79,7 +81,7 @@ def build():
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(source),
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

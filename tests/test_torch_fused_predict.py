@@ -3,7 +3,10 @@ against the JAX package's Pallas kernels (interpret mode) and plain-jnp twin.
 
 The same numpy inputs go through both packages.  Tolerances are those of
 tests/test_fused_predict.py: forward rtol 2e-5 / atol 1e-5 (float32 sums in a
-different order), x* gradient rtol 1e-4 / atol 1e-4.
+different order), x* gradient rtol 1e-4 / atol 1e-4.  The input dims D run
+over 6 (the cart-pole paths), 12 (the Furuta SE) and 24 (UR5's SE+P(2)):
+above 8 the CUDA kernels walk the dims in chunks, and the plain twins they
+are held against on the card are held here against the Pallas kernels.
 """
 
 import jax
@@ -13,6 +16,8 @@ import pytest
 import torch
 
 from mcpilco_tpu.ops import fused_predict as jfp
+from mcpilco_tpu_torch.models import kernels as tK
+from mcpilco_tpu_torch.models.gp import MultiGP, Posterior
 from mcpilco_tpu_torch.ops import fused_predict as tfp
 
 torch.set_num_threads(1)
@@ -24,11 +29,20 @@ GRAD = dict(rtol=1e-4, atol=1e-4)
 def _inputs(G=2, P=50, M=64, D=6, seed=0):
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    # inverse squared lengthscales scaled by 6 / D: the SE part stays O(0.1-1)
+    # at every D instead of vanishing as exp(-2 D)
     return [
-        np.exp(0.3 * f(G, D)), np.exp(0.2 * f(G)), 0.1 * np.exp(0.3 * f(G, D + 1)),
+        np.exp(0.3 * f(G, D)) * np.float32(6.0 / D), np.exp(0.2 * f(G)),
+        0.1 * np.exp(0.3 * f(G, D + 1)),
         0.1 * np.exp(0.3 * f(G, D)), 0.1 * np.exp(0.3 * f(G, D)), f(P, D), f(M, D), f(G, M),
         0.05 * f(G, M, M), (rng.uniform(size=(G, M)) > 0.2).astype(np.float32),
     ]
+
+
+def _with_dims(values, dims=(6, 12, 24)):
+    """(value, D) cases; D=6 keeps the case id it had before D was a parameter."""
+    return [pytest.param(v, d, id=f"{v}" if d == 6 else f"{v}-D{d}")
+            for d in dims for v in values]
 
 
 def _cotangents(P, G=2):
@@ -38,9 +52,9 @@ def _cotangents(P, G=2):
 
 
 @pytest.mark.parametrize("use_poly", [False, True])
-@pytest.mark.parametrize("P", [37, 50])
-def test_forward_matches_pallas_and_jnp_twin(use_poly, P):
-    args = _inputs(P=P, seed=P)
+@pytest.mark.parametrize("P, D", _with_dims([37, 50]))
+def test_forward_matches_pallas_and_jnp_twin(use_poly, P, D):
+    args = _inputs(P=P, D=D, seed=P)
     ka_p, qd_p = jfp.gram_contract(*map(jnp.asarray, args), use_poly, True)
     ka_j, qd_j = jfp._reference_gram_contract(*map(jnp.asarray, args), use_poly)
     t_args = [torch.as_tensor(a) for a in args]
@@ -54,11 +68,11 @@ def test_forward_matches_pallas_and_jnp_twin(use_poly, P):
 
 
 @pytest.mark.parametrize("use_poly", [False, True])
-@pytest.mark.parametrize("P", [37, 50])
-def test_xstar_gradient_matches_pallas_backward(use_poly, P):
+@pytest.mark.parametrize("P, D", _with_dims([37, 50]))
+def test_xstar_gradient_matches_pallas_backward(use_poly, P, D):
     """x*'s cotangent through GramContract (CPU path) against the JAX
     custom_vjp, whose x* cotangent comes from the Pallas backward kernel."""
-    args = _inputs(P=P, seed=100 + P)
+    args = _inputs(P=P, D=D, seed=100 + P)
     wk, wq = _cotangents(P)
 
     def loss_jax(xs):
@@ -133,11 +147,11 @@ def test_cpu_path_launches_no_kernel_and_kernel_wrappers_refuse_cpu_tensors():
 
 @pytest.mark.parametrize("use_poly", [False, True])
 @pytest.mark.parametrize("P", [1, 37, 50])
-@pytest.mark.parametrize("M", [37, 64])
-def test_plain_k2_matches_pallas_backward(use_poly, P, M):
+@pytest.mark.parametrize("M, D", _with_dims([37, 64]))
+def test_plain_k2_matches_pallas_backward(use_poly, P, M, D):
     """K2's plain version, fed kF from the port's plain K1, against the x*
     cotangent of the JAX custom_vjp (Pallas backward, interpret mode)."""
-    args = _inputs(P=P, M=M, seed=200 + P + M)
+    args = _inputs(P=P, M=M, D=D, seed=200 + P + M)
     wk, wq = _cotangents(P)
 
     def loss_jax(xs):
@@ -176,3 +190,58 @@ def test_kf_is_saved_only_for_a_gradient_of_x_star(monkeypatch):
     ka, qd = tfp.gram_contract(*args[:5], xs, *args[6:], True)
     torch.autograd.grad(ka.sum() + qd.sum(), xs)
     assert asked == [False, False, False, True]
+
+
+@pytest.mark.parametrize("structure, D", [("se", 12), ("se+p2", 24)])
+def test_predict_dispatch_takes_wide_inputs(structure, D):
+    """Above 8 dims the fused route is taken and agrees with the plain one:
+    ``_fused_structure`` matches, the wrappers' shape check accepts up to 32
+    dims and refuses 33, and ``_predict_fused`` (the CPU twins of K1/K2)
+    equals ``_predict_plain``, x*'s gradient included."""
+    dims = tuple(range(D))
+    kern = tK.SEArd(dims) if structure == "se" else tK.se_plus_volterra(dims, 2)
+    gp = MultiGP(kernel=kern, num_heads=2)
+    assert gp._fused_structure() == structure
+    args = [torch.as_tensor(a) for a in _inputs(P=40, M=48, D=D, seed=D)]
+    params = gp.init_params(per_head_overrides=[{"member_overrides": [
+        {"lengthscales": np.sqrt(D / 6.0)}, {"sigma_diag": 0.3}, {"sigma_diag": 0.3}]}] * 2
+        if structure == "se+p2" else [{"lengthscales": np.sqrt(D / 6.0)}] * 2)
+    post = Posterior(x_tr=args[6], mask=args[9], alpha=args[7], var_factor=0.1 * args[8],
+                     norm=torch.ones(2))
+    outs = []
+    for predict in (gp._predict_fused, gp._predict_plain):
+        xs = args[5].clone().requires_grad_(True)
+        mean, var = predict(params, post, xs)
+        (g,) = torch.autograd.grad(mean.sum() + var.sum(), xs)
+        outs.append((mean.detach(), var.detach(), g))
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD)
+    shapes = lambda d: (torch.zeros(1, 2, d), torch.zeros(1, 40, d), torch.zeros(1, 48, d))
+    assert tfp._shapes(*shapes(tfp.MAX_D))[4] == tfp.MAX_D == 32
+    with pytest.raises(ValueError, match="at most 32 input dims"):
+        tfp._shapes(*shapes(33))
+
+
+@pytest.mark.cuda
+def test_predict_on_the_card_launches_the_kernels_at_12_dims():
+    """On a CUDA tensor a full-dims SE over 12 inputs runs K1 and K2 (no
+    plain fallback), within FWD / GRAD of ``_predict_plain``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    dev = torch.device("cuda", 0)
+    gp = MultiGP(kernel=tK.SEArd(tuple(range(12))), num_heads=2)
+    args = [torch.as_tensor(a, device=dev) for a in _inputs(P=400, M=192, D=12, seed=12)]
+    params = gp.init_params(per_head_overrides=[{"lengthscales": np.sqrt(2.0)}] * 2, device=dev)
+    post = Posterior(x_tr=args[6], mask=args[9], alpha=args[7], var_factor=0.1 * args[8],
+                     norm=torch.ones(2, device=dev))
+    tfp.reset_launches()
+    xs = args[5].clone().requires_grad_(True)
+    mean, var = gp.predict(params, post, xs)
+    (g,) = torch.autograd.grad(mean.sum() + var.sum(), xs)
+    assert tfp.launches == {"fwd": 1, "bwd": 1}
+    xs_p = args[5].clone().requires_grad_(True)
+    mean_p, var_p = gp._predict_plain(params, post, xs_p)
+    (g_p,) = torch.autograd.grad(mean_p.sum() + var_p.sum(), xs_p)
+    torch.testing.assert_close(mean, mean_p, **FWD)
+    torch.testing.assert_close(var, var_p, **FWD)
+    torch.testing.assert_close(g, g_p, **GRAD)
