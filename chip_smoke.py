@@ -23,10 +23,9 @@ Phases (each prints one line with its time; any failure exits non-zero):
    a 1501-epoch GP fit with the SOD posterior, 30 optimizer steps, then
    the learning-curve check: 10 steps from one key through the kernels and
    through ``MultiGP._predict_plain``, both cost trajectories printed;
-4. the flagship main path through the user's entry points:
-   ``cartpole.build`` then ``reinforce`` for 1 trial of 10 steps at full
-   width (a 500-epoch fit), and the multi-init variant for 1 trial of 10,
-   with the kernel launch counts of those runs;
+4. the multi-init main path: ``cartpole.build`` then ``reinforce`` for 1
+   trial of 10 steps at full width (a 500-epoch fit), with its kernel
+   launch counts (the flagship's own build + reinforce is phase 12 (a));
 5. the 4PMS policy-optimization step: 5 sinusoid-exploration trials
    through the PMS plant with offline filtering (N=440, M=448), a
    1501-epoch exact GP fit, the fitted 'se' posterior through K1 against
@@ -46,7 +45,7 @@ Phases (each prints one line with its time; any failure exits non-zero):
 9. the Furuta policy-optimization step: 2 exploration trials of the
    QUBE-like plant (N=300, M=320, exact GP), a 1501-epoch fit of the
    semiparametric Sum(SE, Linear) model, its posterior against float64 on
-   the plain path, 30 optimizer steps at P=400 and horizon 150 timed as
+   the plain path, 20 optimizer steps at P=400 and horizon 150 timed as
    the host window of the step profile (host ms/step, then device busy,
    device events per step and idle share over 3 profiled steps); then the
    same on the same two trials with ``semiparametric=False`` (SE over 12
@@ -58,7 +57,18 @@ Phases (each prints one line with its time; any failure exits non-zero):
 11. SOR: the flagship cart-pole ``reinforce`` for 1 trial of 20 steps with
     the SOD posterior replaced by the Subset-of-Regressors approximation
     (relative threshold 0.5, 200 epochs of SOR-MLL refinement with trained
-    inducing inputs), with the inducing points, the SOR MLL and ms/step.
+    inducing inputs), with the inducing points, the SOR MLL and ms/step;
+12. the user's entry points at full flagship width (10 steps per trial,
+    500-epoch fits), checkpoints under ``results_tmp/``: (a) ``build`` +
+    ``reinforce`` of 2 of the config's 3 trials, a run interrupted after
+    trial 1, with each stage checkpoint's size, save and load seconds, and
+    the restored arrays bitwise equal to the run's and the rebuilt
+    posterior's K1 predictions within FWD_TOL of the run's; (b) the resume
+    through ``scripts.train_cartpole.run(cfg, auto_resume=True)``: 2 trials
+    resumed, trial 2 trained, its cost gap to the unbroken run's trial 2;
+    (c) ``scripts.apply_policy`` on ``complete_trial1``, 5 plant runs and 400
+    particles x 60 steps on the model; (d) ``scripts.repeat --farm`` over 2
+    seeds of 1 trial.
 
 Phase 2 also holds K1/K2 in their wide path (input dims above 8, walked in
 chunks of 8) against their plain versions at the Furuta shapes ('se', D=12,
@@ -75,11 +85,11 @@ against ``MultiGP._predict_plain``.
 
 There is no CPU path: without a CUDA device the script exits non-zero.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it lists the
-kernels with their launches (phases 4, 6, 7, 8 and 10), errors, device times at
+kernels with their launches (phases 4, 6, 7, 8, 10, 11 and 12), errors, device times at
 the flagship shapes and their bounds, and the same per wide shape
 (``by_shape``).
 
-    python3 chip_smoke.py --phases 2,9,10,11
+    python3 chip_smoke.py --phases 2,9,10,12
 
 runs phase 1 and only the listed phases (the kernels line needs all).
 
@@ -598,8 +608,8 @@ def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, tri
     ``trials`` of another agent on the same plant), fit the GP for 1501
     epochs, hold K1 (where the kernel structure has one) and the plain path
     on the fitted posterior against float64, then time 30 optimizer steps at
-    full width after 5 warm-up steps; with ``profile`` the step profile, and
-    with kernels the learning-curve check."""
+    full width after 5 warm-up steps, or with ``profile`` 20 as the host
+    window of the step profile; with kernels the learning-curve check."""
     from mcpilco_tpu_torch.control.mc_pilco import ModelFitOptions
     from mcpilco_tpu_torch.utils import prng
 
@@ -632,16 +642,17 @@ def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, tri
                                p_dropout0=0.25)
         torch.cuda.synchronize()
 
+    timed = 20 if profile else 30
     if profile:
-        # the 30 timed steps are the profile's host window: (run(31) - run(1)) / 30;
+        # the timed steps are the profile's host window: (run(21) - run(1)) / 20;
         # busy over 3 - 1 profiled steps (~47K events each at horizon 150)
-        p = profile_steps(run, host_steps=30, window=3)
-        res, ms_step, steps = runs[31], p["host_ms"], 31
+        p = profile_steps(run, host_steps=timed, window=3)
+        res, ms_step, steps = runs[timed + 1], p["host_ms"], timed + 1
     else:
         run(5)
         t_opt = time.perf_counter()
-        run(30)
-        res, ms_step, steps = runs[30], 1e3 * (time.perf_counter() - t_opt) / 30, 30
+        run(timed)
+        res, ms_step, steps = runs[timed], 1e3 * (time.perf_counter() - t_opt) / timed, timed
     costs = res.cost_history[: res.steps_done].numpy()
     if res.steps_done != steps or not np.all(np.isfinite(costs)):
         raise RuntimeError(f"policy step: {res.steps_done} steps, costs {costs}")
@@ -649,9 +660,9 @@ def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, tri
     if (min(fp.launches.values()) > 0) != kernels or (max(fp.launches.values()) > 0) != kernels:
         raise RuntimeError(f"the policy step's launches {fp.launches} do not match its kernel "
                            f"structure {agent.gp._fused_structure()}")
-    print(f"  30 steps at P={opt.num_particles}, horizon {opt.horizon}: {ms_step:.2f} ms/step, "
-          f"cost {costs[0]:.3f} -> {costs[-1]:.3f} over {steps} steps, launches "
-          f"{dict(fp.launches)}", flush=True)
+    print(f"  {timed} steps at P={opt.num_particles}, horizon {opt.horizon}: "
+          f"{ms_step:.2f} ms/step, cost {costs[0]:.3f} -> {costs[-1]:.3f} over {steps} steps, "
+          f"launches {dict(fp.launches)}", flush=True)
     if profile:
         top = ", ".join(f"{k[:40]} {v:.0f}" for k, v in list(p["events_by_kernel"].items())[:4])
         print(f"  step profile: {p['host_ms']:.2f} host ms/step, device busy "
@@ -886,6 +897,156 @@ def sor_phase(fp, dev):
     return launches
 
 
+def same_tree(a, b):
+    """Two trees of tensors (or arrays) equal leaf by leaf, bitwise, by name."""
+    from mcpilco_tpu_torch.utils.checkpoint import flatten_with_path
+
+    na, nb = dict(flatten_with_path(a)), dict(flatten_with_path(b))
+    return na.keys() == nb.keys() and all(
+        torch.equal(torch.as_tensor(na[k]).cpu(), torch.as_tensor(nb[k]).cpu()) for k in na)
+
+
+def same_logs(a, b):
+    fields = ("cost_history", "std_history", "particles_states", "particles_inputs")
+    return len(a) == len(b) and all(
+        all(np.array_equal(getattr(x, f), getattr(y, f)) for f in fields)
+        and (x.steps_done, x.reinit_count, x.wall_clock_s) ==
+        (y.steps_done, y.reinit_count, y.wall_clock_s) for x, y in zip(a, b))
+
+
+def entry_points_phase(fp, dev):
+    """Phase 12: the user's entry points at full flagship width (depth cut to
+    10 optimizer steps per trial and 500-epoch fits), with checkpoints under
+    the ignored ``results_tmp/``.  (a) ``build`` + ``reinforce`` of 2 of the
+    config's 3 trials, a run interrupted after trial 1; every stage
+    checkpoint loaded on a fresh agent, its arrays held bitwise against the
+    run's and its rebuilt posterior's K1 predictions against the run's at
+    FWD_TOL.  (b) ``train_cartpole.run(cfg, auto_resume=True)``: 2 trials
+    resumed, trial 2 trained; the gap to the unbroken run's trial 2.  (c)
+    ``apply_policy`` on ``complete_trial1``, on the plant (5 runs) and on the
+    model (400 particles x 60 steps).  (d) ``repeat --farm`` over 2 seeds.
+    Returns the K1/K2 launches of (a)-(d)."""
+    import os
+    import shutil
+
+    from mcpilco_tpu_torch.scenarios import cartpole
+    from mcpilco_tpu_torch.scripts import apply_policy, repeat, train_cartpole
+
+    root = os.path.join("results_tmp", "torch")
+    log_dir = os.path.join(root, "chip_smoke_run")
+    summary_path = os.path.join(root, "repeat_cartpole_chip_smoke.json")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    if os.path.exists(summary_path):
+        os.remove(summary_path)
+    cfg = cartpole.CartpoleConfig(seed=1, num_trials=3, opt_steps=(10,), gp_epochs=500,
+                                  log_dir=log_dir)
+    counted = []
+
+    def count(what):
+        torch.cuda.synchronize()
+        got = dict(fp.launches)
+        if got["fwd"] == 0 or (what != "c" and got["bwd"] == 0):
+            raise RuntimeError(f"phase 12 ({what}) did not launch K1/K2: {got}")
+        counted.append(got)
+        print(f"  ({what}) launches {got}", flush=True)
+
+    # (a) the interrupted run, each checkpoint's save timed
+    agent, kwargs = cartpole.build(cfg, dev)
+    saves, save = {}, agent.save_checkpoint
+
+    def timed_save(stage):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save(stage)
+        saves[stage] = time.perf_counter() - t
+
+    agent.save_checkpoint = timed_save
+    fp.reset_launches()
+    agent.reinforce(**{**kwargs, "num_trials": 2})
+    count("a")
+    stages = [f"{s}_trial{i}" for i in (0, 1) for s in ("model", "policy", "complete")]
+    if sorted(saves) != sorted(stages) or not all(
+            os.path.isdir(os.path.join(log_dir, s)) for s in stages):
+        raise RuntimeError(f"stage checkpoints {sorted(os.listdir(log_dir))}, saved {saves}")
+    fresh = cartpole.build(cfg, dev)[0]
+    for st in stages:
+        path = os.path.join(log_dir, st)
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        t = time.perf_counter()
+        fresh.load_checkpoint(path)
+        torch.cuda.synchronize()
+        print(f"  checkpoint {st}: {size} bytes, save {saves[st]:.4f} s, load + posterior "
+              f"rebuild {time.perf_counter() - t:.4f} s", flush=True)
+    # fresh now holds complete_trial1, the state (a) ended in
+    if not (same_tree(fresh.gp_params, agent.gp_params)
+            and same_tree(fresh.policy_params, agent.policy_params)
+            and np.array_equal(fresh.gp_x, agent.gp_x) and np.array_equal(fresh.gp_y, agent.gp_y)
+            and same_logs(fresh.trial_logs, agent.trial_logs)
+            and fresh.num_collections == agent.num_collections == 3):
+        raise RuntimeError("the restored state differs from the run's")
+    x = torch.as_tensor(agent.gp_x, device=dev)
+    with torch.no_grad():
+        fp.reset_launches()
+        m_r, v_r = fresh.gp.predict(fresh.gp_params, fresh.posterior, x)
+        post = agent._build_posterior(agent._padded_data())
+        m_a, v_a = agent.gp.predict(agent.gp_params, post, x)
+    torch.cuda.synchronize()
+    if fp.launches["fwd"] != 2:
+        raise RuntimeError(f"the restored posterior's predict did not run K1: {fp.launches}")
+    torch.testing.assert_close(m_r, m_a, **FWD_TOL)
+    torch.testing.assert_close(v_r, v_a, **FWD_TOL)
+    print(f"  restored gp_params, policy params, dataset and trial logs bitwise equal to the "
+          f"run's; K1 on the rebuilt posterior (M={fresh.posterior.x_tr.shape[0]}) at the "
+          f"N={x.shape[0]} dataset inputs against the run's: max err mean "
+          f"{max_err(m_r, m_a):.3e}, var {max_err(v_r, v_a):.3e}", flush=True)
+
+    # (b) the resume, through the train script
+    fp.reset_launches()
+    resumed, done = train_cartpole.run(cfg, dev, auto_resume=True)
+    count("b")
+    if done != 2 or len(resumed.trial_logs) != 3 or not same_logs(
+            resumed.trial_logs[:2], agent.trial_logs) or not os.path.isdir(
+            os.path.join(log_dir, "complete_trial2")):
+        raise RuntimeError(f"resume: {done} trials resumed, {len(resumed.trial_logs)} logs")
+    agent.log_dir = None  # the unbroken run's trial 2, for the gap only
+    agent.reinforce(**{**kwargs, "num_trials": 1}, verbose=False)
+    a, b = agent.trial_logs[2].cost_history, resumed.trial_logs[2].cost_history
+    print(f"  resumed 2 trials, trained trial 2; its costs against the unbroken run's: largest "
+          f"gap {float(np.max(np.abs(a - b) / np.abs(a))):.2e} relative "
+          f"({len(b)} steps, last {b[-1]:.4f} / {a[-1]:.4f})", flush=True)
+
+    # (c) replay of complete_trial1
+    fp.reset_launches()
+    rep = apply_policy.load_agent(os.path.join(log_dir, "complete_trial1"), dev)
+    costs = apply_policy.replay_system(rep, 5, 3.0)
+    total, spread, states = apply_policy.replay_model(rep, 400, 3.0)
+    count("c")
+    if not (np.all(np.isfinite(costs)) and math.isfinite(total) and math.isfinite(spread)
+            and states.shape == (60, 400, 4) and np.all(np.isfinite(states))):
+        raise RuntimeError(f"replay: system costs {costs}, model cost {total} +- {spread}")
+    print(f"  replay on the plant, 5 runs: cost {np.mean(costs):.4f} +- {np.std(costs):.4f}; "
+          f"on the model, 400 particles x 60 steps: cost {total:.4f} (particle std "
+          f"{spread:.4f})", flush=True)
+
+    # (d) the farmed sweep
+    fp.reset_launches()
+    rc = repeat.main(["--scenario", "cartpole", "--farm", "--num-seeds", "2", "--device", str(dev),
+                      "--out-tag", "chip_smoke", "--scenario-kw", "num_trials=1",
+                      "--scenario-kw", "opt_steps=(10,)", "--scenario-kw", "gp_epochs=500"])
+    count("d")
+    with open(summary_path) as f:
+        summary = json.load(f)
+    seed_costs = list(summary["per_seed_cost"].values())
+    if rc != 0 or summary["seeds"] != [1, 2] or not all(
+            c is not None and math.isfinite(c) for c in seed_costs) or \
+            fp.launched_lanes["fwd"] != 2 * fp.launches["fwd"]:
+        raise RuntimeError(f"repeat --farm: rc {rc}, summary {summary}, lanes "
+                           f"{fp.launched_lanes}")
+    print(f"  repeat --farm, 2 seeds: costs {seed_costs}, success rate "
+          f"{summary['success_rate']}", flush=True)
+    return {k: sum(c[k] for c in counted) for k in ("fwd", "bwd")}
+
+
 def kernel_ab(fp, dev, root):
     """K1/K2 of the checkout at ``root`` against this checkout's, built with
     the same flags and timed in turns (root / this / this / root) at the
@@ -978,7 +1139,7 @@ def main():
     parser.add_argument("--kernel-ab", default=None, metavar="PATH",
                         help="time K1/K2 of the checkout at PATH against this one's instead")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases 2-11 to run after the build (default all)")
+                        help="comma-separated phases 2-12 to run after the build (default all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's chip check has no CPU path",
@@ -1021,7 +1182,7 @@ def main():
         print(json.dumps({"ok": True, "device": device}))
         return 0
 
-    wanted = set(range(2, 12)) if args.phases is None else {int(v) for v in args.phases.split(",")}
+    wanted = set(range(2, 13)) if args.phases is None else {int(v) for v in args.phases.split(",")}
     paths, rec = [], None
     if 2 in wanted:
         t0 = time.perf_counter()
@@ -1036,12 +1197,12 @@ def main():
         phase("3 flagship policy-optimization step", t0)
 
     if 4 in wanted:
+        # the flagship's own build + reinforce runs in phase 12 (a)
         t0 = time.perf_counter()
-        cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500)
+        cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500,
+                                      multi_init=True)
         paths.append(main_path(cartpole.build(cfg, dev), fp))
-        cfg = dataclasses.replace(cfg, multi_init=True)
-        paths.append(main_path(cartpole.build(cfg, dev), fp))
-        phase("4 flagship main path: build + reinforce (1 trial; multi-init 1 trial)", t0)
+        phase("4 multi-init main path: build + reinforce (1 trial)", t0)
 
     if 5 in wanted:
         t0 = time.perf_counter()
@@ -1090,8 +1251,13 @@ def main():
         paths.append(sor_phase(fp, dev))
         phase("11 SOR: flagship reinforce, 1 trial", t0)
 
+    if 12 in wanted:
+        t0 = time.perf_counter()
+        paths.append(entry_points_phase(fp, dev))
+        phase("12 entry points: interrupted run, resume, replay, farmed repeat", t0)
+
     print(smi, flush=True)  # again beside the results, for logs that keep only the end
-    if rec is None or wanted != set(range(2, 12)):
+    if rec is None or wanted != set(range(2, 13)):
         print(json.dumps({"ok": True, "device": device}))
         return 0
     src = "mcpilco_tpu_torch/csrc/fused_predict.cu"

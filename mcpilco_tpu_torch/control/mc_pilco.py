@@ -5,13 +5,24 @@ A host-side trial loop with the responsibilities of
 model fitting (``MultiGP.fit``, SOD selection, posterior build) and policy
 optimization (``trainer.PolicyOptimizer``), all on ``device``.  The dataset
 accumulates on the host and is padded to shape buckets per fit.
+
+With a ``log_dir``, ``reinforce`` writes a checkpoint after each stage of a
+trial (``utils/checkpoint.py``, the JAX package's npz/json layout, so either
+package resumes the other's runs); ``auto_resume`` continues from the newest
+completed trial.  A hardware rig feeds trials through ``add_external_trial``
+or the CSV file protocol (``load_external_trial``) and takes the policy as
+CSV files (``export_policy_csv``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
+import os
+import re
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -24,6 +35,7 @@ from ..models.dynamics import DynamicsModel
 from ..models.gp import GPData, GPParams, MultiGP
 from ..models.policies import PolicyBase
 from ..ops import linalg
+from ..utils import checkpoint as ckpt
 from ..utils import prng
 from .rollout import InitialStateDistribution
 from .trainer import OptResult, PolicyOptimizer
@@ -61,10 +73,7 @@ class TrialLog:
 
 
 class MCPilco:
-    """Monte-Carlo PILCO on one device.
-
-    Checkpoints (``log_dir``) are not ported yet; passing one raises.
-    """
+    """Monte-Carlo PILCO on one device."""
 
     def __init__(
         self,
@@ -85,13 +94,12 @@ class MCPilco:
         offline_filter_cutoff: float = 0.5,
         offline_filter_method: str = "butter_cd",
         gp_sigma_n_init: float = 1.0,
+        gp_init_overrides: Optional[list] = None,
         seed: int = 1,
         log_dir: Optional[str] = None,
         bucket: int = 64,
         fixed_initial_state: bool = False,
     ):
-        if log_dir:
-            raise NotImplementedError("checkpoints (log_dir) are not ported yet")
         disable_tf32()
         self.device = torch.device(device)
         self.dt = dt
@@ -113,9 +121,15 @@ class MCPilco:
         self.offline_filter_cutoff = offline_filter_cutoff
         self.offline_filter_method = offline_filter_method
         self.gp_sigma_n_init = gp_sigma_n_init
+        self.gp_init_overrides = gp_init_overrides
         self.seed = seed
+        self.log_dir = log_dir
         self.bucket = bucket
         self.fixed_initial_state = fixed_initial_state
+        # stamped by each scenario's build(), so that a checkpoint names the
+        # config it was trained under (replay rebuilds it; auto-resume checks it)
+        self.scenario_name: Optional[str] = None
+        self.scenario_config = None
 
         self.key = prng.root_key(seed)
         self.policy_params = policy.init_params(
@@ -134,6 +148,8 @@ class MCPilco:
         self.trial_logs: List[TrialLog] = []
         self.num_collections = 0
         self.num_exploration_trials = 0
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
 
     # ------------------------------------------------------------ data
 
@@ -145,6 +161,77 @@ class MCPilco:
         self.gp_y = np.concatenate([self.gp_y, y.numpy()], axis=1)
         self.trials.append(trial)
         self.num_collections += 1
+
+    def add_external_trial(self, measured: np.ndarray, inputs: np.ndarray,
+                           exploration: bool = False) -> None:
+        """Hardware-in-the-loop data entry: measured states [T, state_dim] and
+        the applied inputs [T, input_dim] (a flat vector for input_dim = 1).
+        Mark operator exploration runs with ``exploration=True`` so that
+        per-trial cost schedules stay aligned with control-trial ordinals."""
+        measured = np.asarray(measured, np.float32)
+        inputs = np.asarray(inputs, np.float32).reshape(-1, self.model.input_dim)
+        if measured.ndim != 2 or measured.shape[1] != self.model.state_dim:
+            raise ValueError(
+                f"measured states must be [T, {self.model.state_dim}], got {measured.shape}"
+            )
+        if inputs.shape[0] != measured.shape[0]:
+            raise ValueError(
+                f"inputs have {inputs.shape[0]} rows but measured states have "
+                f"{measured.shape[0]} — one input per measured sample required"
+            )
+        # counted only once the trial is sure to be ingested: a rejected call
+        # must not shift every later control-trial ordinal
+        if exploration:
+            self.num_exploration_trials += 1
+        if self.offline_filtering:
+            states, inputs = offline_velocity_estimation(
+                measured, inputs, self.dt, self.model.pos_indices, self.model.vel_indices,
+                filt_cutoff=self.offline_filter_cutoff, method=self.offline_filter_method,
+            )
+        else:
+            states = measured
+        self._ingest(TrialData(measured=states, inputs=inputs, true=states, noisy=measured))
+
+    # ------------------------------------------------------- HIL file protocol
+    # The rig side drops CSVs into <log_dir>/DATA_<trial>/ and reads the
+    # policy parameters as CSVs: the layout of the JAX package's protocol.
+
+    def export_policy_csv(self, out_dir: Optional[str] = None) -> List[str]:
+        """Write every policy-parameter leaf as ``policy_<name>.csv``, ``name``
+        the leaf's path joined by '_' (the JAX package's file names).  Returns
+        the written paths."""
+        out_dir = out_dir or self.log_dir
+        if out_dir is None:
+            raise ValueError("export_policy_csv needs an out_dir or a log_dir")
+        os.makedirs(out_dir, exist_ok=True)
+        paths = []
+        for path, leaf in ckpt.flatten_with_path(self.policy_params):
+            fp = os.path.join(out_dir, f"policy_{'_'.join(str(p) for p in path)}.csv")
+            np.savetxt(fp, np.atleast_2d(leaf.detach().cpu().numpy()), delimiter=",")
+            paths.append(fp)
+        return paths
+
+    def load_external_trial(self, trial_index: Optional[int] = None,
+                            data_dir: Optional[str] = None,
+                            exploration: bool = False) -> TrialData:
+        """Ingest one hardware trial from ``<log_dir>/DATA_<trial>/
+        {noisy_samples.csv, input_samples.csv}`` (or ``data_dir``).  Shape
+        checks and offline filtering happen in :meth:`add_external_trial`;
+        pass ``exploration=True`` for the operator's exploration run."""
+        if data_dir is None:
+            if self.log_dir is None:
+                raise ValueError("load_external_trial needs a data_dir or a log_dir")
+            idx = self.num_collections if trial_index is None else trial_index
+            data_dir = os.path.join(self.log_dir, f"DATA_{idx}")
+        noisy_fp = os.path.join(data_dir, "noisy_samples.csv")
+        input_fp = os.path.join(data_dir, "input_samples.csv")
+        for fp in (noisy_fp, input_fp):
+            if not os.path.exists(fp):
+                raise FileNotFoundError(f"expected hardware data file {fp}")
+        noisy = np.genfromtxt(noisy_fp, delimiter=",")
+        inputs = np.genfromtxt(input_fp, delimiter=",")
+        self.add_external_trial(noisy, inputs, exploration=exploration)
+        return self.trials[-1]
 
     def _padded_data(self) -> GPData:
         n = self.gp_x.shape[0]
@@ -169,7 +256,10 @@ class MCPilco:
     def collect(self, T: float, trial_index: int, exploration: bool) -> TrialData:
         """Interact with the plant and add the trial to the dataset."""
         if self.plant is None:
-            raise RuntimeError("no plant attached")
+            raise RuntimeError(
+                "no plant attached: supply data with add_external_trial() "
+                "(hardware-in-the-loop mode)"
+            )
         pol = self.exploration_policy if exploration else self.policy
         params = self.expl_params if exploration else self.policy_params
         x0 = self._sample_x0(trial_index)
@@ -193,7 +283,7 @@ class MCPilco:
     def fit_model(self, opts: ModelFitOptions) -> dict:
         """Re-init the GP hyperparameters and train all heads."""
         t0 = time.time()
-        self.gp_params = self.gp.init_params(sigma_n=self.gp_sigma_n_init, device=self.device)
+        self.gp_params = self._init_gp_params()
         data = self._padded_data()
         self.gp_params, losses = self.gp.fit(
             self.gp_params, data, num_epochs=opts.num_epochs, learning_rate=opts.learning_rate
@@ -203,6 +293,10 @@ class MCPilco:
         info["wall_clock_s"] = time.time() - t0
         info["num_samples"] = int(self.gp_x.shape[0])
         return info
+
+    def _init_gp_params(self) -> GPParams:
+        return self.gp.init_params(sigma_n=self.gp_sigma_n_init,
+                                   per_head_overrides=self.gp_init_overrides, device=self.device)
 
     def _build_posterior(self, data: GPData, info: Optional[dict] = None):
         """Exact, SOD-subset or SOR posterior, retried with 10x / 100x jitter
@@ -294,6 +388,21 @@ class MCPilco:
         return torch.mean((mean - y) ** 2, dim=-1).cpu().numpy()
 
     @torch.no_grad()
+    def trial_cumulative_cost(self, trial_index: int = -1) -> float:
+        """Cumulative cost of an executed trial on the plant, the per-seed
+        statistic of the repeat protocol.  A per-trial cost schedule is
+        indexed by the control-trial ordinal, the index ``improve_policy``
+        optimized with: exploration trials do not count."""
+        trial = self.trials[trial_index]
+        resolved = trial_index if trial_index >= 0 else len(self.trials) + trial_index
+        resolved = max(0, resolved - self.num_exploration_trials)
+        stage = self.cost.stage_costs(
+            torch.as_tensor(trial.true[:, None, :]), torch.as_tensor(trial.inputs[:, None, :]),
+            trial_index=resolved,
+        )
+        return float(torch.sum(stage))
+
+    @torch.no_grad()
     def rollout_mse(self, trial_index: int = -1) -> np.ndarray:
         """Open-loop rollout MSE per state dim against a stored trial."""
         trial = self.trials[trial_index]
@@ -352,8 +461,11 @@ class MCPilco:
         policy_opt_options: List[PolicyOptOptions],
         num_explorations: int = 1,
         verbose: bool = True,
+        on_trial_end: Optional[Callable] = None,
     ):
-        """The full MBRL loop.  Returns the list of TrialLogs."""
+        """The full MBRL loop, checkpointed after each stage of a trial when
+        there is a ``log_dir``; ``on_trial_end(agent, trial)`` runs after each
+        trial.  Returns the list of TrialLogs."""
         start_trial = len(self.trial_logs)
         if self.num_collections == 0:
             for e in range(num_explorations):
@@ -374,6 +486,7 @@ class MCPilco:
                 )
                 print(f"[mc-pilco] one-step MSE (last trial): {self.one_step_mse()}")
                 print(f"[mc-pilco] rollout MSE  (last trial): {self.rollout_mse()}")
+            self.save_checkpoint(stage=f"model_trial{trial}")
 
             log = self.improve_policy(
                 policy_opt_options[min(trial, len(policy_opt_options) - 1)], trial
@@ -387,10 +500,160 @@ class MCPilco:
                     f"{log.wall_clock_s:.1f}s "
                     f"({1e3 * log.wall_clock_s / max(log.steps_done, 1):.2f} ms/step)"
                 )
+            self.save_checkpoint(stage=f"policy_trial{trial}")
 
             if self.plant is not None:
                 self.collect(T_control, trial_index=self.num_collections, exploration=False)
                 if verbose:
                     print(f"[mc-pilco] pre-update one-step MSE: {self.one_step_mse()}")
                     print(f"[mc-pilco] pre-update rollout  MSE: {self.rollout_mse()}")
+                self.save_checkpoint(stage=f"complete_trial{trial}")
+            if on_trial_end is not None:
+                on_trial_end(self, trial)
         return self.trial_logs
+
+    # ------------------------------------------------------------ persistence
+
+    def auto_resume(self) -> int:
+        """Restore the newest post-interaction checkpoint (``complete_trial<i>``)
+        in ``log_dir``; ``reinforce`` then continues at the next trial.
+        Returns the number of completed trials restored (0: nothing to
+        resume)."""
+        if not self.log_dir:
+            return 0
+        found = [(int(m.group(1)), d)
+                 for d in glob.glob(os.path.join(self.log_dir, "complete_trial*"))
+                 if (m := re.search(r"complete_trial(\d+)$", d))]
+        if not found:
+            return 0
+        latest = max(found)[1]
+        self._check_resume_config(latest)
+        self.load_checkpoint(latest)
+        return len(self.trial_logs)
+
+    def _scenario_meta(self) -> Optional[dict]:
+        if self.scenario_config is None:
+            return None
+        return {"name": self.scenario_name, "config": dataclasses.asdict(self.scenario_config)}
+
+    def _check_resume_config(self, path: str) -> None:
+        """Refuse to resume from a checkpoint written under another scenario
+        config: log dirs outlive sweeps, and resuming after a config change
+        would replay stale state as a fresh sample.  Compares the
+        JSON-normalized configs, ``log_dir`` left out; a no-op when either
+        side has no scenario config."""
+        if self.scenario_config is None:
+            return
+        stored = ckpt.peek_meta(path).get("scenario")
+        if not stored:
+            return
+        current = json.loads(json.dumps(self._scenario_meta(), default=str))
+        for side in (stored, current):
+            side.get("config", {}).pop("log_dir", None)
+        if stored == current:
+            return
+        s_cfg, c_cfg = stored.get("config", {}), current.get("config", {})
+        diffs = [f"{k}: checkpoint={s_cfg.get(k)!r} current={c_cfg.get(k)!r}"
+                 for k in sorted(set(s_cfg) | set(c_cfg)) if s_cfg.get(k) != c_cfg.get(k)]
+        if stored.get("name") != current.get("name"):
+            diffs.insert(0, f"scenario: {stored.get('name')!r} vs {current.get('name')!r}")
+        raise RuntimeError(
+            f"auto-resume refused: checkpoint {path} was written under a "
+            f"different scenario config ({'; '.join(diffs) or 'structural change'}). "
+            "Delete the stale log dir (or re-run without --auto-resume) to start fresh."
+        )
+
+    def save_checkpoint(self, stage: str) -> None:
+        """Write the agent's state to ``<log_dir>/<stage>`` (no-op without a
+        log dir).  Tree names, leaf order and meta keys are the JAX
+        package's; the restart fields ride along in ``trial_log_scalars``."""
+        if not self.log_dir:
+            return
+        trees = {
+            "policy_params": self.policy_params,
+            "expl_params": self.expl_params,
+            "gp_x": self.gp_x,
+            "gp_y": self.gp_y,
+        }
+        if self.gp_params is not None:
+            trees["gp_params"] = self.gp_params
+        for i, l in enumerate(self.trial_logs):
+            trees[f"trial_log_{i}"] = {
+                "cost": l.cost_history,
+                "std": l.std_history,
+                "p_states": l.particles_states,
+                "p_inputs": l.particles_inputs,
+            }
+        meta = {
+            "seed": self.seed,
+            "num_collections": self.num_collections,
+            "num_exploration_trials": self.num_exploration_trials,
+            "dt": self.dt,
+            "stage": stage,
+            "scenario": self._scenario_meta(),
+            "trial_measured": [t.measured.tolist() for t in self.trials],
+            "trial_inputs": [t.inputs.tolist() for t in self.trials],
+            "trial_true": [t.true.tolist() for t in self.trials],
+            "trial_noisy": [t.noisy.tolist() for t in self.trials],
+            "num_trial_logs": len(self.trial_logs),
+            "trial_log_scalars": [
+                {
+                    "steps_done": int(l.steps_done),
+                    "reinit_count": int(l.reinit_count),
+                    "wall_clock_s": float(l.wall_clock_s),
+                    "restart_costs": (None if l.restart_costs is None
+                                      else np.asarray(l.restart_costs).tolist()),
+                    "restart_winner": (None if l.restart_winner is None
+                                       else int(l.restart_winner)),
+                }
+                for l in self.trial_logs
+            ],
+        }
+        ckpt.save(os.path.join(self.log_dir, stage), trees, meta)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore params, dataset, trials and trial logs from a checkpoint
+        directory written by either package, then rebuild the posterior on
+        ``device``."""
+        templates = {
+            "policy_params": self.policy_params,
+            "expl_params": self.expl_params,
+            "gp_x": self.gp_x,
+            "gp_y": self.gp_y,
+            "gp_params": self.gp_params if self.gp_params is not None else self._init_gp_params(),
+        }
+        trees, meta = ckpt.load(path, templates, self.device)
+        self.policy_params = trees["policy_params"]
+        self.expl_params = trees["expl_params"]
+        self.gp_x = np.asarray(trees["gp_x"], np.float32).reshape(-1, self.model.gp_input_dim)
+        self.gp_y = np.asarray(trees["gp_y"], np.float32).reshape(self.gp.num_heads, -1)
+        self.gp_params = trees["gp_params"]
+        self.num_collections = int(meta["num_collections"])
+        self.num_exploration_trials = int(meta.get("num_exploration_trials", 0))
+        noisy = meta.get("trial_noisy") or meta["trial_measured"]
+        self.trials = [
+            TrialData(measured=np.asarray(m, np.float32), inputs=np.asarray(i, np.float32),
+                      true=np.asarray(t, np.float32), noisy=np.asarray(n, np.float32))
+            for m, i, t, n in zip(meta["trial_measured"], meta["trial_inputs"],
+                                  meta["trial_true"], noisy)
+        ]
+        tmpl = {"cost": np.zeros(0), "std": np.zeros(0),
+                "p_states": np.zeros(0), "p_inputs": np.zeros(0)}
+        logs, _ = ckpt.load(path, {f"trial_log_{i}": tmpl
+                                   for i in range(int(meta["num_trial_logs"]))})
+        self.trial_logs = []
+        for i, sc in enumerate(meta["trial_log_scalars"]):
+            lg = logs[f"trial_log_{i}"]
+            rc = sc.get("restart_costs")
+            self.trial_logs.append(TrialLog(
+                cost_history=np.asarray(lg["cost"], np.float32),
+                std_history=np.asarray(lg["std"], np.float32),
+                steps_done=int(sc["steps_done"]),
+                particles_states=lg["p_states"],
+                particles_inputs=lg["p_inputs"],
+                reinit_count=int(sc["reinit_count"]),
+                wall_clock_s=float(sc["wall_clock_s"]),
+                restart_costs=None if rc is None else np.asarray(rc, np.float32),
+                restart_winner=sc.get("restart_winner"),
+            ))
+        self.posterior = self._build_posterior(self._padded_data())

@@ -112,6 +112,11 @@ class CartPoleCost(CostBase):
         theta = states[..., self.angle_index]
         x = states[..., self.pos_index]
         t_th, t_x = self.target_state
-        ls = self.lengthscales[trial_index] if self.per_trial else self.lengthscales
+        ls = self.lengthscales
+        if self.per_trial:
+            # a JAX gather clamps an index past the schedule to its last row
+            n = len(ls)
+            i = int(trial_index)
+            ls = ls[min(max(i + n if i < 0 else i, 0), n - 1)]
         l_th, l_x = ls[0], ls[1]
         return 1.0 - torch.exp(-(((torch.abs(theta) - t_th) / l_th) ** 2) - ((x - t_x) / l_x) ** 2)

@@ -173,7 +173,7 @@ class SeedFarm:
         build the posteriors.  Returns each seed's final MLL [S]."""
         a = self.agent
         S = len(self.seeds)
-        p0 = a.gp.init_params(sigma_n=a.gp_sigma_n_init, device=a.device)
+        p0 = a._init_gp_params()
         params = tree_map(lambda t: t.expand(S, *t.shape).clone(), p0)
         data = self._padded_data()
         self.gp_params, losses = a.gp.fit(params, data, num_epochs=opts.num_epochs,

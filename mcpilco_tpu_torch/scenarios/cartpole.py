@@ -186,6 +186,8 @@ def build(cfg: CartpoleConfig, device="cuda") -> tuple:
         log_dir=cfg.log_dir,
     )
     agent.policy_params = policy_init(cfg, policy, key, device)
+    agent.scenario_name = "cartpole"
+    agent.scenario_config = cfg
     reinforce_kwargs = dict(
         num_trials=cfg.num_trials,
         T_exploration=cfg.T_exploration,

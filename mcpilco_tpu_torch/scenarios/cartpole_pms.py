@@ -129,6 +129,8 @@ def build(cfg: CartpolePMSConfig, device="cuda") -> tuple:
         fixed_initial_state=True,
     )
     agent.policy_params = policy_init(cfg, policy, key, device)
+    agent.scenario_name = "cartpole_pms"
+    agent.scenario_config = cfg
     reinforce_kwargs = dict(
         num_trials=cfg.num_trials,
         T_exploration=cfg.T_exploration,

@@ -128,6 +128,8 @@ def build(cfg: FurutaConfig, device="cuda") -> tuple:
         plant=plant, init_dist=init_dist, seed=cfg.seed, log_dir=cfg.log_dir,
     )
     agent.policy_params = policy_init(cfg, policy, key, device)
+    agent.scenario_name = "furuta"
+    agent.scenario_config = cfg
     reinforce_kwargs = dict(
         num_trials=cfg.num_trials,
         T_exploration=cfg.T_exploration,

@@ -1,0 +1,4 @@
+"""The port's entry scripts, run as ``python -m mcpilco_tpu_torch.scripts.<name>``:
+``train_cartpole``, ``train_cartpole_pms``, ``train_furuta`` (train, checkpoint
+and resume), ``apply_policy`` (replay a checkpoint on the plant or the model)
+and ``repeat`` (the multi-seed outcome protocol)."""

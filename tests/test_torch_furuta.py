@@ -14,6 +14,7 @@ Tolerances, and why:
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -437,7 +438,7 @@ def test_delta_cap_needs_normalized_outputs():
 # ------------------------------------------------------------------ scenario
 
 
-def test_furuta_smoke_config_trains_end_to_end_on_cpu():
+def test_furuta_smoke_config_trains_end_to_end_on_cpu(tmp_path):
     cfg = dataclasses.replace(tfur.FurutaConfig(seed=2).smoke(), opt_steps=(3,), gp_epochs=40)
     agent, kwargs = tfur.build(cfg, "cpu")
     assert agent.optimizer.horizon == 150 and agent.optimizer.engine.delta_cap == 3.0
@@ -450,5 +451,5 @@ def test_furuta_smoke_config_trains_end_to_end_on_cpu():
     assert isinstance(tfur.swingup_success(agent.trials[-1].true), bool)
     se, _ = tfur.build(dataclasses.replace(cfg, semiparametric=False), "cpu")
     assert se.gp._fused_structure() == "se"  # K1/K2 at D=12 on the card
-    with pytest.raises(NotImplementedError, match="log_dir"):
-        tfur.build(dataclasses.replace(cfg, log_dir="logs"), "cpu")
+    logged, _ = tfur.build(dataclasses.replace(cfg, log_dir=str(tmp_path / "logs")), "cpu")
+    assert os.path.isdir(tmp_path / "logs") and logged.scenario_name == "furuta"
