@@ -20,41 +20,43 @@ Phases (each prints one line with its time; any failure exits non-zero):
    and forward + x* backward, the same two ways; print the blocks per
    launch at P=400;
 3. the flagship policy-optimization step: 6 exploration trials (N~360),
-   a 1501-epoch GP fit with the SOD posterior, 30 optimizer steps, then
+   a 1501-epoch GP fit with the SOD posterior, 10 optimizer steps, then
    the learning-curve check: 10 steps from one key through the kernels and
    through ``MultiGP._predict_plain``, both cost trajectories printed;
 4. the multi-init main path: ``cartpole.build`` then ``reinforce`` for 1
-   trial of 10 steps at full width (a 500-epoch fit), with its kernel
+   trial of 5 steps at full width (a 500-epoch fit), with its kernel
    launch counts (the flagship's own build + reinforce is phase 12 (a));
 5. the 4PMS policy-optimization step: 5 sinusoid-exploration trials
    through the PMS plant with offline filtering (N=440, M=448), a
    1501-epoch exact GP fit, the fitted 'se' posterior through K1 against
-   float64, 30 optimizer steps at P=400 and horizon 90, and the
+   float64, 10 optimizer steps at P=400 and horizon 90, and the
    learning-curve check;
 6. the 4PMS main path: ``cartpole_pms.build`` then ``reinforce`` for 1
-   trial of 10 steps at full width (a 500-epoch fit), with its launch
+   trial of 5 steps at full width (a 500-epoch fit), with its launch
    counts;
 7. the seed farm at full width: ``SeedFarm`` over 4 flagship seeds (P=400,
-   horizon 60, SE+P(2), SOD, 500-epoch fits), 1 exploration and 2 trials
+   horizon 60, SE+P(2), SOD, 500-epoch fits), 1 exploration and 1 trial
    of 10 steps, K1/K2 launched with 4 lanes; then the farm's optimizer
-   step profiled beside one seed's (host ms/step, device busy, device
-   events per step, idle share), and one seed's 10-step cost curve farmed
-   against the same seed trained alone (within 0.1% relative);
-8. restart lanes: a 1-trial 4PMS ``reinforce`` of 20 steps (a 500-epoch
+   step profiled beside one seed's (host ms/step over 5 steps, device
+   busy, device events per step, idle share), and one seed's 10-step cost
+   curve farmed against the same seed trained alone (within 0.1% relative);
+8. restart lanes: a 1-trial 4PMS ``reinforce`` of 5 steps (a 500-epoch
    fit) with ``num_restarts=2``, with each lane's cost and the winner;
 9. the Furuta policy-optimization step: 2 exploration trials of the
-   QUBE-like plant (N=300, M=320, exact GP), a 1501-epoch fit of the
-   semiparametric Sum(SE, Linear) model, its posterior against float64 on
-   the plain path, 20 optimizer steps at P=400 and horizon 150 timed as
-   the host window of the step profile (host ms/step, then device busy,
-   device events per step and idle share over 3 profiled steps); then the
+   QUBE-like plant (N=300, M=320, exact GP), a 500-epoch fit of the
+   semiparametric Sum(SE, Linear) model (the SE model below: 1501), its
+   posterior against float64 on the plain path, 3 optimizer steps at P=400
+   and horizon 150 timed as the host window of the step profile (host
+   ms/step, then device busy, device events per step and idle share over 3
+   profiled steps); then the
    same on the same two trials with ``semiparametric=False`` (SE over 12
    dims, K1/K2 in their wide path), the fitted posterior through K1
    against float64 and the learning-curve check;
-10. the Furuta main path: ``furuta.build`` then ``reinforce`` for 2 trials
-    of 20 steps (no kernel structure: 0 launches), and the
-    ``semiparametric=False`` variant for 1 trial of 20 (both kernels);
-11. SOR: the flagship cart-pole ``reinforce`` for 1 trial of 20 steps with
+10. the Furuta main path: ``furuta.build`` then ``reinforce`` for 1 trial
+    of 5 steps (500-epoch fit; no kernel structure: 0 launches), and the
+    ``semiparametric=False`` variant the same (both kernels);
+11. SOR: the flagship cart-pole ``reinforce`` for 1 trial of 10 steps (a
+    500-epoch fit) with
     the SOD posterior replaced by the Subset-of-Regressors approximation
     (relative threshold 0.5, 200 epochs of SOR-MLL refinement with trained
     inducing inputs), with the inducing points, the SOR MLL and ms/step;
@@ -68,7 +70,23 @@ Phases (each prints one line with its time; any failure exits non-zero):
     resumed, trial 2 trained, its cost gap to the unbroken run's trial 2;
     (c) ``scripts.apply_policy`` on ``complete_trial1``, 5 plant runs and 400
     particles x 60 steps on the model; (d) ``scripts.repeat --farm`` over 2
-    seeds of 1 trial.
+    seeds of 1 trial;
+13. UR5 from the recorded trials (``mcpilco_tpu_torch/envs/assets/
+    ur5_pd_trials.npz``; the card's machine has no ``mujoco``, so the
+    MuJoCo plant is built and never rolled out): ``ur5.build`` at full width
+    (400 basis functions, P=200, horizon 200, 6 heads, D=24, remat), the two
+    trials in through ``add_external_trial``, the 2001-epoch fit (N=400,
+    M=448); the default Sum(SE, MPK1) model on the plain predict: its
+    posterior against float64, 10 optimizer steps with the step profile, one
+    rollout + backward with remat on and off (gradients bitwise, peak
+    memory); then ``poly_degree=2`` on the same trials (K1/K2 in their wide
+    path at D=24 G=6 P=200 M=448) with the cost curriculum (the plateau
+    rescue's configuration: the fixed cost starts this seed on its
+    saturated plateau): posterior through K1 against float64, the
+    step profile, K1/K2 device time on the fitted posterior; then the HIL
+    main path: ``improve_policy`` of 10 steps (the kernel side of the
+    learning curve against ``_predict_plain``), ``export_policy_csv`` and a
+    checkpoint round trip restored bitwise.
 
 Phase 2 also holds K1/K2 in their wide path (input dims above 8, walked in
 chunks of 8) against their plain versions at the Furuta shapes ('se', D=12,
@@ -85,11 +103,12 @@ against ``MultiGP._predict_plain``.
 
 There is no CPU path: without a CUDA device the script exits non-zero.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it lists the
-kernels with their launches (phases 4, 6, 7, 8, 10, 11 and 12), errors, device times at
-the flagship shapes and their bounds, and the same per wide shape
-(``by_shape``).
+kernels with their launches (phases 4, 6, 7, 8, 10, 11, 12 and 13), errors, device
+times at the flagship shapes and their bounds, and the same per wide shape
+(``by_shape``; the UR5 shape with its launches in phase 13 and its device
+time on the fitted posterior).
 
-    python3 chip_smoke.py --phases 2,9,10,12
+    python3 chip_smoke.py --phases 2,9,10,13
 
 runs phase 1 and only the listed phases (the kernels line needs all).
 
@@ -603,13 +622,15 @@ def check_real_posterior(gp, gp_params, post, gp_x, dev):
                                f"plain path: {errs}")
 
 
-def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, trials=None):
+def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, trials=None,
+                epochs=1501):
     """Collect ``num_trials`` exploration trials (or ingest the given
-    ``trials`` of another agent on the same plant), fit the GP for 1501
-    epochs, hold K1 (where the kernel structure has one) and the plain path
-    on the fitted posterior against float64, then time 30 optimizer steps at
-    full width after 5 warm-up steps, or with ``profile`` 20 as the host
-    window of the step profile; with kernels the learning-curve check."""
+    ``trials`` of another agent on the same plant), fit the GP for
+    ``epochs`` epochs, hold K1 (where the kernel structure has one) and the
+    plain path on the fitted posterior against float64, then time 10
+    optimizer steps at full width after 5 warm-up steps, or with
+    ``profile`` 3 as the host window of the step profile; with kernels the
+    learning-curve check."""
     from mcpilco_tpu_torch.control.mc_pilco import ModelFitOptions
     from mcpilco_tpu_torch.utils import prng
 
@@ -621,7 +642,7 @@ def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, tri
             agent._ingest(trials[i])
     plant_s = time.perf_counter() - t_plant
     t_fit = time.perf_counter()
-    info = agent.fit_model(ModelFitOptions(num_epochs=1501))
+    info = agent.fit_model(ModelFitOptions(num_epochs=epochs))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t_fit
     M = agent.posterior.x_tr.shape[0]
@@ -642,9 +663,9 @@ def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, tri
                                p_dropout0=0.25)
         torch.cuda.synchronize()
 
-    timed = 20 if profile else 30
+    timed = 3 if profile else 10
     if profile:
-        # the timed steps are the profile's host window: (run(21) - run(1)) / 20;
+        # the timed steps are the profile's host window: (run(4) - run(1)) / 3;
         # busy over 3 - 1 profiled steps (~47K events each at horizon 150)
         p = profile_steps(run, host_steps=timed, window=3)
         res, ms_step, steps = runs[timed + 1], p["host_ms"], timed + 1
@@ -676,24 +697,37 @@ def learning_curve(agent, fp, steps=10):
     """The gate for a kernel change: ``steps`` optimizer steps from one key,
     once through the kernels and once through ``MultiGP._predict_plain``;
     prints both cost trajectories and the gap of their last costs."""
-    from mcpilco_tpu_torch.models.gp import MultiGP
     from mcpilco_tpu_torch.utils import prng
 
-    curves = {}
-    for name in ("kernel", "plain"):
-        with (mock.patch.object(MultiGP, "predict", MultiGP._predict_plain) if name == "plain"
-              else contextlib.nullcontext()):
-            fp.reset_launches()
-            res = agent.optimizer.optimize(prng.fold(prng.root_key(7), 2), agent.policy_params,
-                                           agent.gp_params, agent.posterior,
-                                           num_opt_steps=steps, lr0=0.01, p_dropout0=0.25)
-            torch.cuda.synchronize()
-        costs = res.cost_history[: res.steps_done].numpy()
-        if res.steps_done != steps or not np.all(np.isfinite(costs)):
-            raise RuntimeError(f"learning curve ({name}): {res.steps_done} steps, costs {costs}")
-        if (min(fp.launches.values()) > 0) != (name == "kernel"):
-            raise RuntimeError(f"learning curve ({name}): kernel launches {fp.launches}")
-        curves[name] = costs
+    curves = {name: learning_run(agent, fp, name, prng.fold(prng.root_key(7), 2),
+                                 agent.policy_params, steps)
+              for name in ("kernel", "plain")}
+    compare_curves(curves, steps)
+
+
+def learning_run(agent, fp, name, key, params, steps, trial_index=0):
+    """``steps`` optimizer steps from ``key`` and ``params`` through the
+    kernels (``name`` 'kernel') or ``MultiGP._predict_plain`` ('plain');
+    returns the cost trajectory, checked finite and launched as named."""
+    from mcpilco_tpu_torch.models.gp import MultiGP
+
+    with (mock.patch.object(MultiGP, "predict", MultiGP._predict_plain) if name == "plain"
+          else contextlib.nullcontext()):
+        fp.reset_launches()
+        res = agent.optimizer.optimize(key, params, agent.gp_params, agent.posterior,
+                                       num_opt_steps=steps, lr0=0.01, p_dropout0=0.25,
+                                       trial_index=trial_index)
+        torch.cuda.synchronize()
+    costs = res.cost_history[: res.steps_done].numpy()
+    if res.steps_done != steps or not np.all(np.isfinite(costs)):
+        raise RuntimeError(f"learning curve ({name}): {res.steps_done} steps, costs {costs}")
+    if (min(fp.launches.values()) > 0) != (name == "kernel"):
+        raise RuntimeError(f"learning curve ({name}): kernel launches {fp.launches}")
+    return costs
+
+
+def compare_curves(curves, steps):
+    """Print the kernel and plain cost trajectories and their last costs' gap."""
     gap = abs(curves["kernel"][-1] - curves["plain"][-1]) / abs(curves["plain"][-1])
     for name, c in curves.items():
         print(f"  learning curve, {steps} steps from one key, {name:6s}: "
@@ -782,7 +816,7 @@ def farm_phase(fp, dev):
     from mcpilco_tpu_torch.utils import prng
 
     S = FARM_SEEDS
-    cfg = cartpole.CartpoleConfig(seed=1, num_trials=2, opt_steps=(10, 10), gp_epochs=500)
+    cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500)
     agent, kwargs = cartpole.build(cfg, dev)
     farm = SeedFarm(agent, list(range(1, S + 1)),
                     policy_init_fn=lambda k: cartpole.policy_init(cfg, agent.policy, k, dev))
@@ -815,10 +849,11 @@ def farm_phase(fp, dev):
     keys = [prng.fold(prng.stream(k, prng.STREAM_ROLLOUT), 1) for k in farm.keys]
     one = lambda tree: tree_map(lambda t: t[0], tree)
     farm_p = profile_steps(lane_runner(agent, keys, farm.policy_params, farm.gp_params,
-                                       farm.posterior, 1))
+                                       farm.posterior, 1), host_steps=5, window=3)
     one_p = profile_steps(lane_runner(agent, keys[:1],
                                       {k: v[:1] for k, v in farm.policy_params.items()},
-                                      one(farm.gp_params), one(farm.posterior), 1))
+                                      one(farm.gp_params), one(farm.posterior), 1),
+                          host_steps=5, window=3)
     print(f"  farm step, S={S}: {farm_p['host_ms']:.2f} ms/step of all seeds against S x one "
           f"seed's {S * one_p['host_ms']:.2f} (one seed {one_p['host_ms']:.2f}); device busy "
           f"{farm_p['busy_ms']:.2f} ms/step (one seed {one_p['busy_ms']:.2f}); device events "
@@ -848,7 +883,7 @@ def restart_phase(fp, dev):
     """Phase 8: a 1-trial 4PMS ``reinforce`` with two restart lanes."""
     from mcpilco_tpu_torch.scenarios import cartpole_pms
 
-    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(20,), num_restarts=2,
+    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(5,), num_restarts=2,
                                          gp_epochs=500)
     agent, kwargs = cartpole_pms.build(cfg, dev)
     launches = main_path((agent, kwargs), fp)
@@ -871,7 +906,7 @@ def sor_phase(fp, dev):
     from mcpilco_tpu_torch.models.sod import SORConfig
     from mcpilco_tpu_torch.scenarios import cartpole
 
-    cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(20,))
+    cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500)
     agent, kwargs = cartpole.build(cfg, dev)
     agent.sod = None
     agent.sor = SORConfig(threshold_mode="relative", threshold=(0.5,), refine_epochs=200,
@@ -1047,6 +1082,211 @@ def entry_points_phase(fp, dev):
     return {k: sum(c[k] for c in counted) for k in ("fwd", "bwd")}
 
 
+def ur5_fitted(cfg, trials, fp, dev):
+    """``ur5.build`` at full width, the recorded trials in through
+    ``add_external_trial``, the config's fit; N, the SOD counts per head and
+    M printed, the fitted posterior held against float64."""
+    from mcpilco_tpu_torch.control.mc_pilco import ModelFitOptions
+    from mcpilco_tpu_torch.scenarios import ur5
+
+    agent, _ = ur5.build(cfg, dev)
+    for measured, inputs in zip(trials["measured"], trials["inputs"]):
+        agent.add_external_trial(measured, inputs, exploration=True)
+    t0 = time.perf_counter()
+    info = agent.fit_model(ModelFitOptions(num_epochs=cfg.gp_epochs))
+    torch.cuda.synchronize()
+    M = agent.posterior.x_tr.shape[0]
+    print(f"  UR5 poly_degree={cfg.poly_degree}: N={info['num_samples']} sod per head "
+          f"{info['sod_points']} M={M}; mll {info['mll_first']:.1f} -> {info['mll_last']:.1f} "
+          f"over {cfg.gp_epochs} epochs; fit + posterior {time.perf_counter() - t0:.2f} s; "
+          f"one-step MSE {agent.one_step_mse()}", flush=True)
+    if info["num_samples"] != 400 or M != 448:
+        raise RuntimeError(f"UR5 from the recorded trials: N={info['num_samples']}, M={M}; "
+                           f"expected N=400, M=448")
+    check_real_posterior(agent.gp, agent.gp_params, agent.posterior, agent.gp_x, dev)
+    return agent
+
+
+def ur5_step_profile(agent, fp, label):
+    """10 timed optimizer steps as the host window of the step profile; the
+    costs finite, the kernels launched where the structure has them."""
+    from mcpilco_tpu_torch.utils import prng
+
+    runs = {}
+
+    def run(n):
+        runs[n] = agent.optimizer.optimize(prng.fold(prng.root_key(7), 1), agent.policy_params,
+                                           agent.gp_params, agent.posterior, n, 0.01, 0.25)
+        torch.cuda.synchronize()
+
+    fp.reset_launches()
+    p = profile_steps(run, host_steps=10, window=2)
+    res = runs[11]
+    costs = res.cost_history[: res.steps_done].numpy()
+    if res.steps_done != 11 or not np.all(np.isfinite(costs)):
+        raise RuntimeError(f"UR5 {label}: {res.steps_done} steps, costs {costs}")
+    kernels = agent.gp._fused_structure() is not None
+    if (min(fp.launches.values()) > 0) != kernels or (max(fp.launches.values()) > 0) != kernels:
+        raise RuntimeError(f"UR5 {label}: launches {fp.launches} against the kernel structure "
+                           f"{agent.gp._fused_structure()}")
+    top = ", ".join(f"{k[:40]} {v:.0f}" for k, v in list(p["events_by_kernel"].items())[:4])
+    print(f"  UR5 {label}, P={agent.optimizer.num_particles}, horizon {agent.optimizer.horizon}, "
+          f"remat: {p['host_ms']:.2f} host ms/step, device busy {p['busy_ms']:.2f} ms/step, device "
+          f"events per step {p['events']:.0f}, idle share {p['idle']:.3f}; cost {costs[0]:.3f} -> "
+          f"{costs[-1]:.3f}; most events per step: {top}", flush=True)
+    return p
+
+
+def ur5_remat_check(agent, dev):
+    """One rollout's policy gradient from one key with remat on and off:
+    bitwise equal, or the largest difference stated (and held within
+    GRAD_TOL); the peak memory of each."""
+    from mcpilco_tpu_torch.utils import prng
+
+    out = {}
+    for remat in (True, False):
+        opt = dataclasses.replace(agent.optimizer, engine=dataclasses.replace(
+            agent.optimizer.engine, remat=remat))
+        leaves = {k: v[None].detach().clone().requires_grad_(True)
+                  for k, v in agent.policy_params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        cost, _ = opt._rollout_cost(leaves, agent.gp_params, agent.posterior,
+                                    [prng.fold(prng.root_key(7), 3)], 0.25, 0)
+        grads = torch.autograd.grad(cost.sum(), list(leaves.values()))
+        torch.cuda.synchronize()
+        out[remat] = (cost.detach(), [g.detach() for g in grads],
+                      torch.cuda.max_memory_allocated(dev), base, time.perf_counter() - t0)
+    (c1, g1, peak1, base1, s1), (c0, g0, peak0, base0, s0) = out[True], out[False]
+    equal = torch.equal(c1, c0) and all(torch.equal(a, b) for a, b in zip(g1, g0))
+    diff = max(max_err(a, b) / max(float(b.abs().max()), 1e-30) for a, b in zip(g1, g0))
+    same = "bitwise equal" if equal else f"largest relative difference {diff:.3e}"
+    print(f"  UR5 remat on / off, one rollout + backward from one key: cost {float(c1):.6f} / "
+          f"{float(c0):.6f}; gradients {same}; "
+          f"peak memory {peak1 / 2**30:.3f} / {peak0 / 2**30:.3f} GiB (above {base1 / 2**30:.3f} "
+          f"GiB held before); {s1:.2f} / {s0:.2f} s", flush=True)
+    if not all(float(g.abs().max()) > 0 for g in g0):
+        raise RuntimeError("UR5 remat check: a zero policy gradient compares nothing")
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+    return dict(peak_remat=peak1, peak_plain=peak0, bitwise=equal)
+
+
+def ur5_kernel_times(agent, fp, dev):
+    """K1 and K2 on the fitted 'se+p2' posterior at the rollout's P=200,
+    device us per launch (x* drawn from the dataset inputs), beside the plain
+    versions' call."""
+    rng = np.random.default_rng(1)
+    xs0 = torch.as_tensor(agent.gp_x[rng.integers(0, len(agent.gp_x), 200)], device=dev)
+    gp, params, post = agent.gp, agent.gp_params, agent.posterior
+    wk, wq = cotangents(200, dev, gp.num_heads)
+
+    def fwd_bwd(fn):
+        xs = xs0.clone().requires_grad_(True)
+        mean, var = fn(params, post, xs)
+        return torch.autograd.grad(torch.sum(wk * mean) + torch.sum(wq * var), xs)
+
+    per = {name: device_us(lambda: fwd_bwd(fn))
+           for name, fn in (("kernel", gp._predict_fused), ("plain", gp._predict_plain))}
+    t = dict(k1=named_us(per["kernel"], "k1_forward"),
+             k2=named_us(per["kernel"], "k2_backward_xstar"),
+             call=sum(per["kernel"].values()), plain=sum(per["plain"].values()))
+    print(f"  UR5 fitted posterior (se+p2 D=24 G=6 P=200 M={post.x_tr.shape[0]}), device us per "
+          f"predict fwd+bwd: K1 {t['k1']:.2f}, K2 {t['k2']:.2f} (the call {t['call']:.2f}; "
+          f"_predict_plain {t['plain']:.2f})", flush=True)
+    return t
+
+
+def ur5_phase(fp, dev):
+    """Phase 13: UR5 on the card from the recorded trials (the card's machine
+    has no ``mujoco``: the MuJoCo plant is built and never rolled out).
+    The default Sum(SE, MPK1) model (the plain predict): fit, float64 check,
+    step profile, remat on/off; then ``poly_degree=2`` on the same trials
+    (K1/K2 in their wide path at D=24 G=6 P=200 M=448) with the per-trial
+    cost curriculum: fit, float64 check, step profile, K1/K2 on the fitted
+    posterior; then the HIL main path: ``improve_policy`` of 10 steps (the
+    kernel side of the learning curve, held against the same 10 steps
+    through ``_predict_plain``), ``export_policy_csv`` and a checkpoint
+    round trip.  Returns the main path's launches and the
+    real-posterior kernel times."""
+    import os
+    import shutil
+
+    from mcpilco_tpu_torch.control.mc_pilco import PolicyOptOptions
+    from mcpilco_tpu_torch.scenarios import ur5
+    from mcpilco_tpu_torch.utils import prng
+
+    trials = ur5.recorded_trials()
+    cfg = ur5.UR5Config(seed=1)
+    agent = ur5_fitted(cfg, trials, fp, dev)
+    if agent.gp._fused_structure() is not None:
+        raise RuntimeError("UR5's default Sum(SE, MPK1) should have no fused structure")
+    ur5_step_profile(agent, fp, "Sum(SE, MPK1), plain predict")
+    ur5_remat_check(agent, dev)
+    del agent
+    torch.cuda.empty_cache()
+
+    # the fixed cost leaves this seed's init on the saturated plateau (the
+    # default model's cost above goes to 199 of a possible 199, where the
+    # gradient is 0, and so would the learning curve): the K1/K2 model runs
+    # with the cost curriculum, the configuration train_ur5's plateau rescue
+    # restarts such a seed with
+    cfg2 = dataclasses.replace(cfg, poly_degree=2, cost_lengthscales="curriculum")
+    agent = ur5_fitted(cfg2, trials, fp, dev)
+    if agent.gp._fused_structure() != "se+p2":
+        raise RuntimeError(f"UR5 poly_degree=2 structure {agent.gp._fused_structure()}")
+    ur5_step_profile(agent, fp, "se+p2, K1/K2")
+    times = ur5_kernel_times(agent, fp, dev)
+
+    # the HIL main path, counted; its 10 steps are the kernel side of the
+    # learning curve, the same 10 steps through _predict_plain the other
+    log_dir = os.path.join("results_tmp", "torch", "chip_smoke_ur5")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    agent.log_dir = log_dir
+    os.makedirs(log_dir)
+    params0 = agent.policy_params
+    fp.reset_launches()
+    t0 = time.perf_counter()
+    log = agent.improve_policy(PolicyOptOptions(opt_steps=10, learning_rate=0.01, p_dropout=0.25),
+                               trial_index=0)
+    csvs = agent.export_policy_csv()
+    agent.save_checkpoint("policy_trial0")
+    fresh = ur5.build(cfg2, dev)[0]
+    fresh.load_checkpoint(os.path.join(log_dir, "policy_trial0"))
+    torch.cuda.synchronize()
+    launches = dict(fp.launches)
+    hil_s = time.perf_counter() - t0
+    if launches["fwd"] == 0 or launches["bwd"] == 0:
+        raise RuntimeError(f"the UR5 HIL path did not launch K1/K2: {launches}")
+    if log.steps_done != 10 or not np.all(np.isfinite(log.cost_history)):
+        raise RuntimeError(f"UR5 improve_policy: {log.steps_done} steps, {log.cost_history}")
+    if not (same_tree(fresh.policy_params, agent.policy_params)
+            and same_tree(fresh.gp_params, agent.gp_params)
+            and same_tree(fresh.expl_params, agent.expl_params)
+            and np.array_equal(fresh.gp_x, agent.gp_x) and np.array_equal(fresh.gp_y, agent.gp_y)
+            and same_logs(fresh.trial_logs, agent.trial_logs)
+            and fresh.num_exploration_trials == agent.num_exploration_trials == 2):
+        raise RuntimeError("the restored UR5 state differs from the run's")
+    for path in csvs:
+        name = os.path.basename(path)[len("policy_"):-len(".csv")]
+        want = agent.policy_params[name].cpu().numpy()
+        if not np.array_equal(np.loadtxt(path, delimiter=",", ndmin=2).astype(np.float32),
+                              np.atleast_2d(want)):
+            raise RuntimeError(f"exported {path} differs from the policy's {name}")
+    plain = learning_run(agent, fp, "plain",
+                         prng.fold(prng.stream(agent.key, prng.STREAM_ROLLOUT), 0), params0, 10)
+    compare_curves({"kernel": log.cost_history, "plain": plain}, 10)
+    print(f"  UR5 HIL path: improve_policy {log.steps_done} steps, cost "
+          f"{log.cost_history[0]:.3f} -> {log.cost_history[-1]:.3f}, "
+          f"{1e3 * log.wall_clock_s / log.steps_done:.2f} ms/step, reinits {log.reinit_count}; "
+          f"{len(csvs)} policy CSVs equal to the params; checkpoint restored bitwise; "
+          f"launches {launches} ({launches['fwd'] / log.steps_done:.1f} K1 and "
+          f"{launches['bwd'] / log.steps_done:.1f} K2 per step); {hil_s:.1f} s", flush=True)
+    return launches, times
+
+
 def kernel_ab(fp, dev, root):
     """K1/K2 of the checkout at ``root`` against this checkout's, built with
     the same flags and timed in turns (root / this / this / root) at the
@@ -1139,7 +1379,7 @@ def main():
     parser.add_argument("--kernel-ab", default=None, metavar="PATH",
                         help="time K1/K2 of the checkout at PATH against this one's instead")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases 2-12 to run after the build (default all)")
+                        help="comma-separated phases 2-13 to run after the build (default all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's chip check has no CPU path",
@@ -1182,7 +1422,7 @@ def main():
         print(json.dumps({"ok": True, "device": device}))
         return 0
 
-    wanted = set(range(2, 13)) if args.phases is None else {int(v) for v in args.phases.split(",")}
+    wanted = set(range(2, 14)) if args.phases is None else {int(v) for v in args.phases.split(",")}
     paths, rec = [], None
     if 2 in wanted:
         t0 = time.perf_counter()
@@ -1199,7 +1439,7 @@ def main():
     if 4 in wanted:
         # the flagship's own build + reinforce runs in phase 12 (a)
         t0 = time.perf_counter()
-        cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500,
+        cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(5,), gp_epochs=500,
                                       multi_init=True)
         paths.append(main_path(cartpole.build(cfg, dev), fp))
         phase("4 multi-init main path: build + reinforce (1 trial)", t0)
@@ -1213,14 +1453,14 @@ def main():
 
     if 6 in wanted:
         t0 = time.perf_counter()
-        cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500)
+        cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(5,), gp_epochs=500)
         paths.append(main_path(cartpole_pms.build(cfg, dev), fp))
         phase("6 4PMS main path: build + reinforce (1 trial)", t0)
 
     if 7 in wanted:
         t0 = time.perf_counter()
         paths.append(farm_phase(fp, dev))
-        phase(f"7 seed farm: {FARM_SEEDS} flagship seeds, 2 trials", t0)
+        phase(f"7 seed farm: {FARM_SEEDS} flagship seeds, 1 trial", t0)
 
     if 8 in wanted:
         t0 = time.perf_counter()
@@ -1232,19 +1472,21 @@ def main():
         cfg = furuta.FurutaConfig(seed=1)
         print("  Furuta, semiparametric Sum(SE, Linear):", flush=True)
         semi = furuta.build(cfg, dev)[0]
-        policy_step(semi, 2, cfg.T_exploration, fp, dev, expect_m=320, profile=True)
+        policy_step(semi, 2, cfg.T_exploration, fp, dev, expect_m=320, profile=True, epochs=500)
         print("  Furuta, SE over 12 dims, on the same two trials:", flush=True)
+        # the full fit under the learning curve: a 500-epoch model spread
+        # kernel and plain curves 2.4% apart (0.27% at 1501 epochs)
         policy_step(furuta.build(dataclasses.replace(cfg, semiparametric=False), dev)[0], 2,
                     cfg.T_exploration, fp, dev, expect_m=320, profile=True, trials=semi.trials)
         phase("9 Furuta policy-optimization step (semiparametric; SE at D=12)", t0)
 
     if 10 in wanted:
         t0 = time.perf_counter()
-        cfg = furuta.FurutaConfig(seed=1, num_trials=2, opt_steps=(20, 20))
+        cfg = furuta.FurutaConfig(seed=1, num_trials=1, opt_steps=(5,), gp_epochs=500)
         paths.append(main_path(furuta.build(cfg, dev), fp))
-        cfg = dataclasses.replace(cfg, semiparametric=False, num_trials=1, opt_steps=(20,))
+        cfg = dataclasses.replace(cfg, semiparametric=False)
         paths.append(main_path(furuta.build(cfg, dev), fp))
-        phase("10 Furuta main path: build + reinforce (2 trials; SE at D=12 1 trial)", t0)
+        phase("10 Furuta main path: build + reinforce (1 trial each)", t0)
 
     if 11 in wanted:
         t0 = time.perf_counter()
@@ -1256,8 +1498,20 @@ def main():
         paths.append(entry_points_phase(fp, dev))
         phase("12 entry points: interrupted run, resume, replay, farmed repeat", t0)
 
+    if 13 in wanted:
+        t0 = time.perf_counter()
+        ur5_launches, ur5_times = ur5_phase(fp, dev)
+        paths.append(ur5_launches)
+        if rec is not None:
+            # the UR5 shape of phase 2's wide cases: its launches on the HIL
+            # path and its device time on the fitted posterior
+            for key, kernel in (("fwd", "k1"), ("bwd", "k2")):
+                row = next(r for r in rec[key]["by_shape"] if r["shape"].startswith("se+p2 D=24"))
+                row.update(launches=ur5_launches[key], real_posterior_ms=1e-3 * ur5_times[kernel])
+        phase("13 UR5 from the recorded trials: both models, remat, HIL path", t0)
+
     print(smi, flush=True)  # again beside the results, for logs that keep only the end
-    if rec is None or wanted != set(range(2, 13)):
+    if rec is None or wanted != set(range(2, 14)):
         print(json.dumps({"ok": True, "device": device}))
         return 0
     src = "mcpilco_tpu_torch/csrc/fused_predict.cu"

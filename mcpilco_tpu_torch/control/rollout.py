@@ -15,6 +15,11 @@ loop).  The rollout's random numbers are drawn up front, one tensor per
 stream, from generators seeded by the rollout key (:class:`RolloutNoise`);
 tests hand in their own draws instead.
 
+With ``remat``, each step runs under ``torch.utils.checkpoint``: its
+activations are recomputed in the backward pass instead of kept, which
+bounds the memory of long horizons (UR5: 200 steps) at one extra forward
+per step.
+
 Lanes: with policy parameters [L, ...] and particles [L, P, ds], one
 rollout runs L independent optimizations at once (restart lanes, which
 share one posterior, or the seed farm's seeds, each with its own); the key
@@ -29,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..models import filters
 from ..models.dynamics import DynamicsModel
@@ -206,6 +212,9 @@ class RolloutEngine:
     # one particle that leaves it would blow up the closed-loop rollout; the
     # cap binds only there.  Needs normalize_outputs; None disables.
     delta_cap: Optional[float] = None
+    # recompute each step's activations in the backward pass instead of
+    # keeping them (``jax.checkpoint`` of the JAX package's scan step)
+    remat: bool = False
 
     def __post_init__(self):
         if self.delta_cap is not None and not self.gp.normalize_outputs:
@@ -265,29 +274,43 @@ class RolloutEngine:
             noise = self.draw_noise(key, s0.shape[-2], horizon, p_dropout, s0.device, s0.dtype)
         rate = _policy_rate(p_dropout, s0.device)
 
-        def policy_at(s, t):
+        def policy_at(params, s, t):
             keep = None if noise.keep is None else noise.keep[t]
-            return self.policy.apply(policy_params, s, t, p_dropout=rate, keep=keep)
+            return self.policy.apply(params, s, t, p_dropout=rate, keep=keep)
 
         if self.sensors is not None:
-            return self._simulate_pms(policy_at, gp_params, posterior, s0, horizon,
-                                      particle_pred, noise)
-        s, u = s0, policy_at(s0, 0)
-        states, inputs = [s0], [u]
-        for t in range(1, horizon):
+            return self._simulate_pms(policy_at, policy_params, gp_params, posterior, s0,
+                                      horizon, particle_pred, noise)
+
+        def step(t, s, u, policy_params, gp_params, posterior):
             if self.bptt_clip is not None:
                 s = _clip_bptt(s, self.bptt_clip)
             mean, var = self._predict(gp_params, posterior, self.model.gp_inputs(s, u))
             s, _, _ = self.model.sample_next_state(
                 s, u, mean, var, particle_pred=particle_pred, eps=noise.state[t - 1]
             )
-            u = policy_at(s, t)
+            return s, policy_at(policy_params, s, t)
+
+        s, u = s0, policy_at(policy_params, s0, 0)
+        states, inputs = [s0], [u]
+        for t in range(1, horizon):
+            s, u = self._step(step, t, s, u, policy_params, gp_params, posterior)
             states.append(s)
             inputs.append(u)
         return RolloutResult(states=torch.stack(states), inputs=torch.stack(inputs))
 
-    def _simulate_pms(self, policy_at, gp_params, posterior, s0, horizon, particle_pred,
-                      noise: RolloutNoise) -> RolloutResult:
+    def _step(self, step, *args):
+        """``step(*args)``, checkpointed under ``remat`` when a backward pass
+        will come.  Everything the gradient flows to (the carried tensors,
+        the policy and GP parameters, the posterior) is an argument of
+        ``step``.  The step draws no random numbers (they come in through
+        :class:`RolloutNoise`), so the recompute needs no saved RNG state."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(step, *args, use_reentrant=False, preserve_rng_state=False)
+        return step(*args)
+
+    def _simulate_pms(self, policy_at, policy_params, gp_params, posterior, s0, horizon,
+                      particle_pred, noise: RolloutNoise) -> RolloutResult:
         """The rollout with the simulated measurement chain: the policy sees
         noisy positions and filtered finite-difference velocities, the cost
         the true states.  ``noisy`` carries the raw measurement: noisy
@@ -297,10 +320,8 @@ class RolloutEngine:
         b, a = sens.coeffs(s0.dtype)
         pos, vel = list(sens.pos_indices), list(sens.vel_indices)
         std_pos = torch.as_tensor(sens.std_pos_noise, dtype=s0.dtype, device=s0.device)
-        # at t=0 the measurement equals the true state
-        s, u, noisy_prev, meas_vel_prev = s0, policy_at(s0, 0), s0, s0[..., vel]
-        states, inputs = [s0], [u]
-        for t in range(1, horizon):
+
+        def step(t, s, u, noisy_prev, meas_vel_prev, policy_params, gp_params, posterior):
             if self.bptt_clip is not None:
                 s = _clip_bptt(s, self.bptt_clip)
                 noisy_prev = _clip_bptt(noisy_prev, self.bptt_clip)
@@ -313,7 +334,15 @@ class RolloutEngine:
                 b, a, s, s[..., pos] + std_pos * noise.meas[t - 1], noisy_prev, meas_vel_prev,
                 pos, vel, sens.dt,
             )
-            u = policy_at(meas, t)
+            return s, policy_at(policy_params, meas, t), noisy_prev, meas_vel_prev
+
+        # at t=0 the measurement equals the true state
+        s, noisy_prev, meas_vel_prev = s0, s0, s0[..., vel]
+        u = policy_at(policy_params, s0, 0)
+        states, inputs = [s0], [u]
+        for t in range(1, horizon):
+            s, u, noisy_prev, meas_vel_prev = self._step(
+                step, t, s, u, noisy_prev, meas_vel_prev, policy_params, gp_params, posterior)
             states.append(s)
             inputs.append(u)
         return RolloutResult(states=torch.stack(states), inputs=torch.stack(inputs))

@@ -163,6 +163,15 @@ class PolicyOptimizer:
     max_nan_retries: int = 10
     num_restarts: int = 1
     restart_vmap: bool = True
+    # The JAX package cuts its compiled optimization loop into chunks of
+    # host dispatch of this many steps (adapted towards chunk_target_s
+    # seconds, at most chunk_iter_slack x the chunk's steps of loop
+    # iterations), which changes no number.  This host loop drives every
+    # step already: the fields are taken so that scenarios build the same
+    # optimizer in both packages, and change nothing here.
+    chunk_steps: int = 500
+    chunk_target_s: float = 15.0
+    chunk_iter_slack: float = 2.0
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     adam_eps: float = 1e-8

@@ -83,6 +83,59 @@ class SaturatedDistance(QuadraticDistance):
         return 1.0 - torch.exp(-self._dist(states))
 
 
+def _schedule_row(rows, trial_index):
+    """Row ``trial_index`` of a per-trial schedule, clamped into it as a JAX
+    gather clamps an index past the schedule."""
+    n = len(rows)
+    i = int(trial_index)
+    return rows[min(max(i + n if i < 0 else i, 0), n - 1)]
+
+
+def _static_lengthscales(ls):
+    """Lengthscales as native floats: a tuple, or a tuple of per-trial rows."""
+    ls = np.asarray(ls, float)
+    return (tuple(tuple(float(x) for x in row) for row in ls) if ls.ndim == 2
+            else tuple(float(x) for x in ls.reshape(-1)))
+
+
+@dataclasses.dataclass(frozen=True)
+class SaturatedTrajectoryTracking(CostBase):
+    """1 - exp(-||(s_t - target_t) / l||^2) against a time-indexed target
+    trajectory.  ``lengthscales`` may be per-trial ([n_trials, d] with
+    ``per_trial=True``); ``used_indices`` selects the tracked state dims."""
+
+    target_traj: Tuple[Tuple[float, ...], ...]
+    lengthscales: Tuple
+    per_trial: bool = False
+    used_indices: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        tt = tuple(tuple(float(v) for v in row) for row in np.asarray(self.target_traj))
+        object.__setattr__(self, "target_traj", tt)
+        object.__setattr__(self, "lengthscales", _static_lengthscales(self.lengthscales))
+        object.__setattr__(self, "used_indices", _as_tuple(self.used_indices))
+
+    def stage_costs(self, states, inputs, trial_index=0):
+        T, n = states.shape[0], len(self.target_traj)
+        opts = dict(dtype=states.dtype, device=states.device)
+        # the time index clamped into the target: an executed trial carries
+        # T+1 states against a T-step target, and its last sample is scored
+        # against the final target state
+        rows = [self.target_traj[min(t, n - 1)] for t in range(T)]
+        traj = torch.tensor(rows, **opts)  # [T, ds]
+        ls = self.lengthscales
+        if self.per_trial:
+            ls = _schedule_row(ls, trial_index)
+        ls = torch.as_tensor(ls, **opts)
+        err = states - traj.reshape((T,) + (1,) * (states.dim() - 2) + (traj.shape[-1],))
+        if self.used_indices is not None:
+            idx = list(self.used_indices)
+            err = err[..., idx]
+            ls = ls[..., idx] if ls.dim() else ls
+        d = torch.sum((err / ls) ** 2, dim=-1)
+        return 1.0 - torch.exp(-d)
+
+
 @dataclasses.dataclass(frozen=True)
 class CartPoleCost(CostBase):
     """1 - exp(-((|theta|-theta*)/l_th)^2 - ((x-x*)/l_x)^2),
@@ -99,14 +152,7 @@ class CartPoleCost(CostBase):
         object.__setattr__(
             self, "target_state", tuple(float(v) for v in np.asarray(self.target_state, float))
         )
-        ls = np.asarray(self.lengthscales, float)
-        object.__setattr__(
-            self,
-            "lengthscales",
-            tuple(tuple(float(x) for x in row) for row in ls)
-            if ls.ndim == 2
-            else tuple(float(x) for x in ls.reshape(-1)),
-        )
+        object.__setattr__(self, "lengthscales", _static_lengthscales(self.lengthscales))
 
     def stage_costs(self, states, inputs, trial_index=0):
         theta = states[..., self.angle_index]
@@ -114,9 +160,6 @@ class CartPoleCost(CostBase):
         t_th, t_x = self.target_state
         ls = self.lengthscales
         if self.per_trial:
-            # a JAX gather clamps an index past the schedule to its last row
-            n = len(ls)
-            i = int(trial_index)
-            ls = ls[min(max(i + n if i < 0 else i, 0), n - 1)]
+            ls = _schedule_row(ls, trial_index)
         l_th, l_x = ls[0], ls[1]
         return 1.0 - torch.exp(-(((torch.abs(theta) - t_th) / l_th) ** 2) - ((x - t_x) / l_x) ** 2)

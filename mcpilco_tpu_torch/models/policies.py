@@ -7,7 +7,9 @@ Every policy is a static config object with (``mcpilco_tpu/models/policies.py``)
   batched over a leading particle axis and differentiable w.r.t. ``params``
   and ``states``.  ``key`` is a ``utils.prng`` key; ``keep`` is an optional
   dropout keep-mask that replaces the draw, so tests can share it.
-- ``param_mask(params)`` and ``reinit(params, key)``.
+- ``param_mask(params)`` and ``reinit(params, key)``;
+- ``host_policy(params)``: a numpy closure (state, t) -> action for
+  host-side plants.
 
 Lanes (restart lanes, the seed farm's seeds): :class:`SumOfGaussians` takes
 parameters with a leading lane axis [L, ...] and states [L, P, ds], a
@@ -53,6 +55,47 @@ class PolicyBase:
 
     def reinit(self, params, key):
         return params
+
+    def host_policy(self, params):
+        """NumPy-facing closure for host-side plant rollouts: a state [ds]
+        and a step t in, the action [du] out, computed on the parameters'
+        device without a key (no dropout, no dither)."""
+        leaves = [v for v in params.values() if torch.is_tensor(v)]
+        device = leaves[0].device if leaves else torch.device("cpu")
+
+        @torch.no_grad()
+        def np_policy(state, t):
+            s = torch.as_tensor(np.asarray(state, np.float32), device=device)[None, :]
+            return self.apply(params, s, int(round(t)))[0].cpu().numpy()
+
+        return np_policy
+
+
+def _clamp_step(t, n: int) -> int:
+    """A time index clamped into [0, n-1], as a JAX gather clamps it."""
+    return min(max(int(t), 0), n - 1)
+
+
+class _TargetTrajectory:
+    """A static target trajectory ``target_traj`` (a tuple of rows) read at
+    a clamped time index; its tensor is made once per dtype and device."""
+
+    target_traj: Tuple[Tuple[float, ...], ...]
+
+    def _store_traj(self):
+        tt = tuple(tuple(float(v) for v in row) for row in np.asarray(self.target_traj))
+        object.__setattr__(self, "target_traj", tt)
+
+    def _traj(self, dtype, device) -> torch.Tensor:
+        cache = self.__dict__.setdefault("_traj_cache", {})
+        k = (dtype, torch.device(device))
+        if k not in cache:
+            cache[k] = torch.tensor(self.target_traj, dtype=dtype, device=device)
+        return cache[k]
+
+    def _target(self, t, like: torch.Tensor) -> torch.Tensor:
+        traj = self._traj(like.dtype, like.device)
+        return traj[_clamp_step(t, traj.shape[0])]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,3 +308,64 @@ class SumOfGaussiansWithAngles(SumOfGaussians):
         ang = states[..., list(self.angle_indices)]
         rest = states[..., list(self.non_angle_indices)]
         return torch.cat([rest, torch.cos(ang), torch.sin(ang)], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SumOfGaussiansTracking(_TargetTrajectory, SumOfGaussians):
+    """Time-indexed tracking policy: the RBF network on [s, target(t) - s].
+    ``feature_dim`` must equal 2 * state_dim; the target trajectory is
+    static data given at construction, indexed at t clamped into it."""
+
+    target_traj: Tuple[Tuple[float, ...], ...] = ()
+
+    def __post_init__(self):
+        super().__post_init__()
+        self._store_traj()
+
+    def _policy_input(self, states, t):
+        target = self._target(t, states)
+        return torch.cat([states, target - states], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class PDController(_TargetTrajectory, PolicyBase):
+    """PD tracking controller u = squash(Kp^2 e_pos + Kd^2 e_vel) against a
+    reference trajectory, e = target(t) - s with t clamped into it.
+    ``noise_std`` > 0 adds an exploration dither noise_std * N(0, 1) before
+    the squash, drawn from ``fold(key, 0x9D)`` (only with a key), so that
+    the GP sees the torque dims beyond the exact PD law."""
+
+    state_dim: int
+    input_dim: int
+    target_traj: Tuple[Tuple[float, ...], ...] = ()
+    u_max: float = 1.0
+    trainable: bool = False
+    noise_std: float = 0.0
+
+    def __post_init__(self):
+        object.__setattr__(self, "u_max", _umax_static(self.u_max))
+        self._store_traj()
+
+    def init_params(self, key, sqrt_kp=None, sqrt_kd=None, device="cpu",
+                    dtype=torch.float32) -> dict:
+        opts = dict(dtype=dtype, device=device)
+        half = self.state_dim // 2
+        kp = torch.ones(half, **opts) if sqrt_kp is None else torch.as_tensor(sqrt_kp, **opts)
+        kd = torch.ones(half, **opts) if sqrt_kd is None else torch.as_tensor(sqrt_kd, **opts)
+        return {"sqrt_kp": kp, "sqrt_kd": kd}
+
+    def param_mask(self, params):
+        return {"sqrt_kp": self.trainable, "sqrt_kd": self.trainable}
+
+    def apply(self, params, states, t, key=None, p_dropout=0.0, keep=None, dither=None):
+        """``dither`` [..., du] standard normals replace the draw from
+        ``key`` (tests hand in JAX's)."""
+        err = self._target(t, states) - states
+        half = self.state_dim // 2
+        u = params["sqrt_kp"] ** 2 * err[..., :half] + params["sqrt_kd"] ** 2 * err[..., half:]
+        if self.noise_std > 0 and (dither is not None or key is not None):
+            if dither is None:
+                dither = torch.randn(u.shape, dtype=u.dtype, device=u.device,
+                                     generator=prng.generator(prng.fold(key, 0x9D), u.device))
+            u = u + self.noise_std * dither
+        return squash(u, self.u_max)

@@ -1,4 +1,4 @@
-"""What the three train scripts share: their common flags, and the run
+"""What the train scripts share: their common flags, and the run
 itself (build, optional auto-resume, ``reinforce``, the result lines)."""
 
 import argparse
@@ -30,20 +30,31 @@ def config(cfg, args):
     return cfg
 
 
-def train(scen, cfg, device, auto_resume: bool, tag: str, angle_index: int):
-    """Build, optionally resume, train, and print the result lines of the
-    JAX package's scripts: the wall clock, the final trial's swing-up success
-    and cumulative cost, and its last five |angle| - pi.  Returns (agent,
-    number of trials resumed)."""
+def build_and_train(scen, cfg, device, auto_resume: bool, tag: str, on_resumed=None,
+                    on_trial_end=None):
+    """Build, optionally resume (then ``on_resumed(agent)``), train with
+    ``reinforce(on_trial_end=...)`` and print the wall clock.  Returns
+    (agent, number of trials resumed)."""
     agent, kwargs = scen.build(cfg, device)
     done = agent.auto_resume() if auto_resume else 0
     if done:
         print(f"[train] auto-resumed {done} completed trials from {agent.log_dir}")
         kwargs = {**kwargs, "num_trials": max(kwargs["num_trials"] - done, 0)}
+        if on_resumed is not None:
+            on_resumed(agent)
     t0 = time.time()
-    logs = agent.reinforce(**kwargs)
-    final = agent.trials[-1]
+    logs = agent.reinforce(**kwargs, on_trial_end=on_trial_end)
     print(f"\n[{tag}] total wall-clock {time.time() - t0:.1f}s over {len(logs)} trials")
+    return agent, done
+
+
+def train(scen, cfg, device, auto_resume: bool, tag: str, angle_index: int):
+    """Build, optionally resume, train, and print the result lines of the
+    JAX package's scripts: the wall clock, the final trial's swing-up success
+    and cumulative cost, and its last five |angle| - pi.  Returns (agent,
+    number of trials resumed)."""
+    agent, done = build_and_train(scen, cfg, device, auto_resume, tag)
+    final = agent.trials[-1]
     print(f"[{tag}] final-trial swing-up success: {scen.swingup_success(final.true)}")
     print(f"[{tag}] final-trial cumulative cost: {agent.trial_cumulative_cost():.4f}")
     print(f"[{tag}] final trial tail |angle|-pi:",

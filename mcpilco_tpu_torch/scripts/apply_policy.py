@@ -16,7 +16,7 @@ import os
 import numpy as np
 import torch
 
-from ..scenarios import cartpole, cartpole_pms, furuta
+from ..scenarios import cartpole, cartpole_mujoco, cartpole_pms, furuta, ur5
 from ..utils import checkpoint as ckpt
 from ..utils import prng
 
@@ -24,6 +24,8 @@ SCENARIOS = {
     "cartpole": (cartpole, cartpole.CartpoleConfig),
     "cartpole_pms": (cartpole_pms, cartpole_pms.CartpolePMSConfig),
     "furuta": (furuta, furuta.FurutaConfig),
+    "cartpole_mujoco": (cartpole_mujoco, cartpole_mujoco.CartpoleMujocoConfig),
+    "ur5": (ur5, ur5.UR5Config),
 }
 
 

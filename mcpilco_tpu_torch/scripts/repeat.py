@@ -8,7 +8,9 @@ rate and the quartiles of the final trial's cumulative cost.
 Seeds run one after another in this process, each through its train
 script's ``run`` in ``results_tmp/torch/<scenario>[_<tag>]_<seed>``, or with
 ``--farm`` as lanes of ``parallel.multiseed.SeedFarm``, ``--farm-batch``
-seeds at a time (the flagship and multi-init cart-pole).  The summary,
+seeds at a time (the flagship and multi-init cart-pole; the MuJoCo
+scenarios, ``cartpole_mujoco`` and ``ur5``, run only one after another).
+A UR5 seed succeeds when it tracks within 10 degrees RMS on every joint.  The summary,
 ``results_tmp/torch/repeat_<scenario>[_<tag>].json``, has the keys of the
 JAX package's ``scripts/repeat.py`` summary and is rewritten after every
 seed or batch, so ``--resume`` can skip the seeds already done; a resumed
@@ -25,21 +27,36 @@ import traceback
 import torch
 
 from ..parallel.multiseed import SeedFarm
-from ..scenarios import cartpole, cartpole_pms, furuta
-from . import train_cartpole, train_cartpole_pms, train_furuta
+from ..scenarios import cartpole, cartpole_mujoco, cartpole_pms, furuta, ur5
+from . import (train_cartpole, train_cartpole_mujoco, train_cartpole_pms, train_furuta,
+               train_ur5)
 
 OUT_DIR = os.path.join("results_tmp", "torch")
 
-# scenario -> (scenario module, train script, config of one seed)
+
+def _swung_up(scen):
+    return lambda agent: scen.swingup_success(agent.trials[-1].true)
+
+
+# scenario -> (scenario module, train script, config of one seed, success of a
+# trained agent)
 SCENARIOS = {
-    "cartpole": (cartpole, train_cartpole, lambda s: cartpole.CartpoleConfig(seed=s)),
+    "cartpole": (cartpole, train_cartpole, lambda s: cartpole.CartpoleConfig(seed=s),
+                 _swung_up(cartpole)),
     "cartpole_multi_init": (cartpole, train_cartpole,
-                            lambda s: cartpole.CartpoleConfig(seed=s, multi_init=True)),
+                            lambda s: cartpole.CartpoleConfig(seed=s, multi_init=True),
+                            _swung_up(cartpole)),
     "cartpole_pms": (cartpole_pms, train_cartpole_pms,
-                     lambda s: cartpole_pms.CartpolePMSConfig(seed=s)),
-    "furuta": (furuta, train_furuta, lambda s: furuta.FurutaConfig(seed=s)),
+                     lambda s: cartpole_pms.CartpolePMSConfig(seed=s), _swung_up(cartpole_pms)),
+    "furuta": (furuta, train_furuta, lambda s: furuta.FurutaConfig(seed=s), _swung_up(furuta)),
+    "cartpole_mujoco": (cartpole_mujoco, train_cartpole_mujoco,
+                        lambda s: cartpole_mujoco.CartpoleMujocoConfig(seed=s),
+                        _swung_up(cartpole_mujoco)),
+    "ur5": (ur5, train_ur5, lambda s: ur5.UR5Config(seed=s), ur5.tracking_success),
 }
 FARMABLE = ("cartpole", "cartpole_multi_init")
+# the MuJoCo scenarios' plants run on the host, one seed at a time
+HOST_PLANTS = ("cartpole_mujoco", "ur5")
 
 
 def _config(args, seed):
@@ -65,11 +82,11 @@ def _config(args, seed):
 def run_sequential(args, seeds, results, costs):
     """Each seed through its train script's ``run``; a seed that raises is
     recorded as a failure without a cost, and the sweep goes on."""
-    scen, script, _ = SCENARIOS[args.scenario]
+    _, script, _, success = SCENARIOS[args.scenario]
     for s in seeds:
         try:
             agent, _ = script.run(_config(args, s), args.device, auto_resume=args.resume)
-            results[s] = scen.swingup_success(agent.trials[-1].true)
+            results[s] = success(agent)
             costs[s] = round(agent.trial_cumulative_cost(), 4)
         except Exception:  # one crashed seed must not lose the sweep
             traceback.print_exc()
@@ -80,6 +97,10 @@ def run_sequential(args, seeds, results, costs):
 
 def run_farm(args, seeds, results, costs):
     """``--farm-batch`` seeds at a time as lanes of one ``SeedFarm``."""
+    if args.scenario in HOST_PLANTS:
+        raise SystemExit(
+            f"--farm does not take {args.scenario} yet: the farm has no host-plant collection "
+            "(the JAX package's SeedFarm._collect_host; ROADMAP Queue A.9); run it without --farm")
     if args.scenario not in FARMABLE:
         raise SystemExit(
             f"--farm supports {', '.join(FARMABLE)}; the farm for {args.scenario} is not "

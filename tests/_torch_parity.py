@@ -4,11 +4,15 @@
 packages at a small size, or with ``pms=True`` the 4PMS cart-pole's (30 Hz,
 SE GP, the sensor chain in the rollout, BPTT clip 0.2); ``collect_data``
 makes training data with the port's plant on the CPU.
+``assert_same_config`` compares two packages' config objects field by field.
 ``jax_rollout_noise`` reproduces, in the test, the random draws that
 ``mcpilco_tpu``'s rollout and trainer make from a key
 (``control/rollout.py:213-229,275-276``, ``control/trainer.py:248-251``),
 so that the port can be handed the same numbers.
 """
+
+import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -148,3 +152,31 @@ def jax_rollout_noise(key, P, T, G, num_basis, p_dropout, init_dim=None, n_pos=N
     meas = None if n_pos is None else normals(jprng.STREAM_MEAS_NOISE, n_pos)
     return troll.RolloutNoise(state=normals(jprng.STREAM_ROLLOUT, G), keep=keep, init=init,
                               meas=meas)
+
+
+# dataclass fields only the JAX package has (its mesh, scan unroll, Pallas
+# switch, gram chunking and NaN-branch lowering)
+JAX_ONLY_FIELDS = {"scan_unroll", "mesh", "nan_branch_style", "gram_chunk", "use_pallas"}
+
+
+def assert_same_config(j, t, path="agent"):
+    """A JAX config object ``j`` and the port's ``t``: dataclass fields by
+    name, recursively (the port may lack only ``JAX_ONLY_FIELDS``), values
+    equal (floats within 1e-12 relative)."""
+    if dataclasses.is_dataclass(j) and not isinstance(j, type):
+        assert type(j).__name__ == type(t).__name__, path
+        names = [f.name for f in dataclasses.fields(j)]
+        port = {f.name for f in dataclasses.fields(t)}
+        assert set(names) - port <= JAX_ONLY_FIELDS, (path, set(names) - port)
+        assert port <= set(names), (path, port - set(names))
+        for n in names:
+            if n in port:
+                assert_same_config(getattr(j, n), getattr(t, n), f"{path}.{n}")
+    elif isinstance(j, (tuple, list)):
+        assert isinstance(t, (tuple, list)) and len(j) == len(t), path
+        for i, (a, b) in enumerate(zip(j, t)):
+            assert_same_config(a, b, f"{path}[{i}]")
+    elif isinstance(j, float) and isinstance(t, float):
+        assert math.isclose(j, t, rel_tol=1e-12, abs_tol=1e-300), (path, j, t)
+    else:
+        assert j == t, (path, j, t)

@@ -19,7 +19,8 @@ from mcpilco_tpu_torch.scripts import apply_policy, repeat, train_cartpole
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SCRIPTS = ["train_cartpole", "train_cartpole_pms", "train_furuta", "apply_policy", "repeat"]
+SCRIPTS = ["train_cartpole", "train_cartpole_pms", "train_furuta", "train_ur5",
+           "train_cartpole_mujoco", "apply_policy", "repeat"]
 # repeat's seeds cut to a few seconds each
 TINY_KW = ["--scenario-kw", "num_particles=16", "--scenario-kw", "opt_steps=(3,)",
            "--scenario-kw", "gp_epochs=30", "--scenario-kw", "num_basis=10"]
