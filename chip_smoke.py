@@ -24,7 +24,7 @@ Phases (each prints one line with its time; any failure exits non-zero):
    the learning-curve check: 10 steps from one key through the kernels and
    through ``MultiGP._predict_plain``, both cost trajectories printed;
 4. the multi-init main path: ``cartpole.build`` then ``reinforce`` for 1
-   trial of 5 steps at full width (a 500-epoch fit), with its kernel
+   trial of 3 steps at full width (a 500-epoch fit), with its kernel
    launch counts (the flagship's own build + reinforce is phase 12 (a));
 5. the 4PMS policy-optimization step: 5 sinusoid-exploration trials
    through the PMS plant with offline filtering (N=440, M=448), a
@@ -32,36 +32,36 @@ Phases (each prints one line with its time; any failure exits non-zero):
    float64, 10 optimizer steps at P=400 and horizon 90, and the
    learning-curve check;
 6. the 4PMS main path: ``cartpole_pms.build`` then ``reinforce`` for 1
-   trial of 5 steps at full width (a 500-epoch fit), with its launch
+   trial of 3 steps at full width (a 500-epoch fit), with its launch
    counts;
 7. the seed farm at full width: ``SeedFarm`` over 4 flagship seeds (P=400,
    horizon 60, SE+P(2), SOD, 500-epoch fits), 1 exploration and 1 trial
    of 10 steps, K1/K2 launched with 4 lanes; then the farm's optimizer
-   step profiled beside one seed's (host ms/step over 5 steps, device
+   step profiled beside one seed's (host ms/step over 2 steps, device
    busy, device events per step, idle share), and one seed's 10-step cost
    curve farmed against the same seed trained alone (within 0.1% relative);
-8. restart lanes: a 1-trial 4PMS ``reinforce`` of 5 steps (a 500-epoch
+8. restart lanes: a 1-trial 4PMS ``reinforce`` of 3 steps (a 500-epoch
    fit) with ``num_restarts=2``, with each lane's cost and the winner;
 9. the Furuta policy-optimization step: 2 exploration trials of the
    QUBE-like plant (N=300, M=320, exact GP), a 500-epoch fit of the
    semiparametric Sum(SE, Linear) model (the SE model below: 1501), its
-   posterior against float64 on the plain path, 3 optimizer steps at P=400
+   posterior against float64 on the plain path, 2 optimizer steps at P=400
    and horizon 150 timed as the host window of the step profile (host
-   ms/step, then device busy, device events per step and idle share over 3
+   ms/step, then device busy, device events per step and idle share over 2
    profiled steps); then the
    same on the same two trials with ``semiparametric=False`` (SE over 12
    dims, K1/K2 in their wide path), the fitted posterior through K1
    against float64 and the learning-curve check;
 10. the Furuta main path: ``furuta.build`` then ``reinforce`` for 1 trial
-    of 5 steps (500-epoch fit; no kernel structure: 0 launches), and the
+    of 3 steps (300-epoch fit; no kernel structure: 0 launches), and the
     ``semiparametric=False`` variant the same (both kernels);
 11. SOR: the flagship cart-pole ``reinforce`` for 1 trial of 10 steps (a
     500-epoch fit) with
     the SOD posterior replaced by the Subset-of-Regressors approximation
     (relative threshold 0.5, 200 epochs of SOR-MLL refinement with trained
     inducing inputs), with the inducing points, the SOR MLL and ms/step;
-12. the user's entry points at full flagship width (10 steps per trial,
-    500-epoch fits), checkpoints under ``results_tmp/``: (a) ``build`` +
+12. the user's entry points at full flagship width (5 steps per trial,
+    300-epoch fits), checkpoints under ``results_tmp/``: (a) ``build`` +
     ``reinforce`` of 2 of the config's 3 trials, a run interrupted after
     trial 1, with each stage checkpoint's size, save and load seconds, and
     the restored arrays bitwise equal to the run's and the rebuilt
@@ -75,18 +75,34 @@ Phases (each prints one line with its time; any failure exits non-zero):
     ur5_pd_trials.npz``; the card's machine has no ``mujoco``, so the
     MuJoCo plant is built and never rolled out): ``ur5.build`` at full width
     (400 basis functions, P=200, horizon 200, 6 heads, D=24, remat), the two
-    trials in through ``add_external_trial``, the 2001-epoch fit (N=400,
+    trials in through ``add_external_trial``, a 1001-epoch fit (N=400,
     M=448); the default Sum(SE, MPK1) model on the plain predict: its
-    posterior against float64, 10 optimizer steps with the step profile, one
+    posterior against float64, 3 optimizer steps with the step profile, one
     rollout + backward with remat on and off (gradients bitwise, peak
     memory); then ``poly_degree=2`` on the same trials (K1/K2 in their wide
     path at D=24 G=6 P=200 M=448) with the cost curriculum (the plateau
     rescue's configuration: the fixed cost starts this seed on its
     saturated plateau): posterior through K1 against float64, the
     step profile, K1/K2 device time on the fitted posterior; then the HIL
-    main path: ``improve_policy`` of 10 steps (the kernel side of the
+    main path: ``improve_policy`` of 3 steps (the kernel side of the
     learning curve against ``_predict_plain``), ``export_policy_csv`` and a
-    checkpoint round trip restored bitwise.
+    checkpoint round trip restored bitwise;
+14. the seed farm over the other scenarios at full width, depth cut: (a)
+    4PMS over 4 seeds (P=400, horizon 90, exact 'se' GP, BPTT clip 0.2,
+    500-epoch fits, 1 trial of 5 steps), K1/K2 with 4 lanes, the device
+    offline estimator against the host path on the farm's exploration
+    trials, the step profile beside one seed's and beside one seed as a
+    lane axis of size 1 (equal device events), one seed's 5-step curve
+    farmed against alone (within 5e-3 relative); (b) Furuta's shipped
+    semiparametric model over 4 seeds (1 trial of 3 steps, no kernel
+    launch), its step profile and curve; (c) the host-plant collection
+    (``SeedFarm._collect_host``) with the flagship's ODE plant behind a
+    host plant's ``rollout()`` (the card's machine has no ``mujoco``), 2
+    seeds of 3 steps, training pairs against the device plant's farm within
+    1e-6; (d) ``scripts.repeat --scenario cartpole_pms --farm`` over 2
+    seeds; (e) the 4PMS farm's posteriors under the legacy variance
+    operator: ``MultiGP.predict`` launches no kernel and agrees with the
+    factor form through K1 at FWD_TOL.
 
 Phase 2 also holds K1/K2 in their wide path (input dims above 8, walked in
 chunks of 8) against their plain versions at the Furuta shapes ('se', D=12,
@@ -95,7 +111,8 @@ M=448), with device times and bounds, and ``MultiGP.predict`` on the card
 at those widths (K1/K2 launched, against ``_predict_plain``).  It also
 holds the lane-batched K1/K2 (L in {1, 4} at the flagship and
 4PMS shapes, L=3 at M=37, whose lane strides are not 16-byte aligned, L=4
-at the farm's M=128, and P=800 for two folded restart lanes) against their
+at the farms' M=128 in both modes, L=4 in the wide path at 'se' D=12
+M=192, and P=800 for two folded restart lanes) against their
 plain versions and, lane by lane, bitwise against the L=1 launch, with
 device time per launch beside L x the L=1 time; and ``MultiGP.predict`` as
 the restart fold and the farm's lane posteriors call it, lane by lane
@@ -103,12 +120,14 @@ against ``MultiGP._predict_plain``.
 
 There is no CPU path: without a CUDA device the script exits non-zero.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it lists the
-kernels with their launches (phases 4, 6, 7, 8, 10, 11, 12 and 13), errors, device
-times at the flagship shapes and their bounds, and the same per wide shape
-(``by_shape``; the UR5 shape with its launches in phase 13 and its device
-time on the fitted posterior).
+kernels with their launches (phases 4, 6, 7, 8, 10, 11, 12, 13 and 14),
+errors, device times at the flagship shapes and their bounds, and the same
+per wide shape and for the L=4 lane shapes of the 4PMS farm and the wide
+path (``by_shape``; the UR5 shape with its launches in phase 13 and its
+device time on the fitted posterior, the 4PMS farm's with its launches per
+optimizer step in phase 14).
 
-    python3 chip_smoke.py --phases 2,9,10,13
+    python3 chip_smoke.py --phases 2,9,10,14
 
 runs phase 1 and only the listed phases (the kernels line needs all).
 
@@ -152,18 +171,28 @@ FWD_TOL = dict(rtol=2e-5, atol=1e-5)  # tests/test_fused_predict.py:32
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_fused_predict.py:65
 G, D, M_FLAGSHIP, M_PMS = 2, 6, 384, 448
 SWEEP_P, SWEEP_M = (1, 37, 400), (37, 100, 384, 448, 1024)
-# (use_poly, P, M, lane counts) of the lane-batched checks; M=37 gives lane
-# strides of F that are not a multiple of 16 bytes; P=800 is two restart
-# lanes folded into one call (phase 8 and the 4PMS protocol), L=4 at M=128
-# the farm's launches (phase 7)
+# (use_poly, P, M, lane counts[, G, D]) of the lane-batched checks; M=37
+# gives lane strides of F that are not a multiple of 16 bytes; P=800 is two
+# restart lanes folded into one call (phase 8 and the 4PMS protocol), L=4 at
+# M=128 the farms' launches (phase 7 'se+p2', phase 14's 4PMS farm 'se'),
+# 'se' at D=12 M=192 the wide path with lanes (the Furuta farm with
+# semiparametric=False)
 M_SMALL = 128
 LANE_CASES = ((True, 400, M_FLAGSHIP, (1, 4)), (False, 400, M_PMS, (1, 4)),
               (False, 37, 37, (3,)), (True, 37, 37, (3,)), (True, 400, M_SMALL, (4,)),
-              (False, 800, M_SMALL, (1,)), (False, 800, M_PMS, (1,)))
+              (False, 400, M_SMALL, (1, 4)), (False, 800, M_SMALL, (1,)),
+              (False, 800, M_PMS, (1,)), (False, 400, 192, (1, 4), 2, 12))
+# the lane shapes whose device time, plain time and bound go into the
+# kernels line's by_shape rows: the 4PMS farm's and the wide path's at L=4
+LANE_ROWS = {(False, 400, M_SMALL, 4, 6), (False, 400, 192, 4, 12)}
 FARM_SEEDS = 4
 # the wide path's shapes: (use_poly, G, P, M, D); the Furuta SE posterior at
 # its first and sixth trial, and UR5's SE+P(2)
 WIDE_CASES = ((False, 2, 400, 192, 12), (False, 2, 400, 960, 12), (True, 6, 200, 448, 24))
+# phase 13's depth: the UR5 step profiles' host window and the HIL path's
+# optimizer steps (a UR5 step takes 2-3.6 s on the host)
+UR5_STEPS = 3
+UR5_EPOCHS = 1001  # of the config's 2001
 # NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): float32 outside
 # the tensor cores, and HBM
 PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
@@ -218,11 +247,35 @@ def cuda_ms(fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters
 
 
+_RECORDS_CHECKED = []
+
+
+def device_records(prof):
+    """The device records (name, us) of a finished ``torch.profiler`` window,
+    read from its raw kineto results: ``prof.events()`` would first build
+    the host-side event tree, which takes seconds per 100K records (a
+    profiled 4PMS step has ~26K kernels).  The first window read is also
+    read through ``prof.events()`` and the two must hold the same records."""
+    from torch.autograd import DeviceType
+
+    out = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA
+           and not getattr(e, "is_hidden_event", lambda: False)()]
+    if not _RECORDS_CHECKED:
+        parsed = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if sorted(n for n, _ in parsed) != sorted(n for n, _ in out) or not math.isclose(
+                sum(t for _, t in parsed), sum(t for _, t in out), rel_tol=1e-6):
+            raise RuntimeError(f"raw kineto records ({len(out)}) differ from the parsed "
+                               f"events ({len(parsed)})")
+        _RECORDS_CHECKED.append(len(out))
+    return out
+
+
 def device_us(fn, iters=20, warmup=3):
     """Device time per call of ``fn`` in microseconds, by kernel name, from
     torch.profiler's kernel records over ``iters`` calls: the host's launch
     gaps are not in it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -236,9 +289,8 @@ def device_us(fn, iters=20, warmup=3):
                 fn()
             torch.cuda.synchronize()
         per = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / iters
+        for name, us in device_records(prof):
+            per[name] = per.get(name, 0.0) + us / iters
         if per:
             return per
     raise RuntimeError("torch.profiler recorded no kernel on the card in 3 windows")
@@ -357,7 +409,10 @@ def check_kernels(fp, dev):
         print(f"  wide {shape}: bound K1 {rec['fwd']['by_shape'][-1]['bound_ms']:.4f} ms, "
               f"K2 {rec['bwd']['by_shape'][-1]['bound_ms']:.4f} ms "
               f"({rec['fwd']['by_shape'][-1]['bound_by']}); blocks K1 {k1}, K2 {k2}", flush=True)
-    for e_fwd, e_bwd in (check_lanes(fp, dev), check_predict_lanes(dev), check_predict_wide(dev)):
+    lane_errs, lane_rows = check_lanes(fp, dev)
+    for key, extra in zip(("fwd", "bwd"), lane_rows):
+        rec[key]["by_shape"] += extra
+    for e_fwd, e_bwd in (lane_errs, check_predict_lanes(dev), check_predict_wide(dev)):
         rec["fwd"]["max_abs_err"] = max(rec["fwd"]["max_abs_err"], e_fwd)
         rec["bwd"]["max_abs_err"] = max(rec["bwd"]["max_abs_err"], e_bwd)
     return rec
@@ -393,16 +448,21 @@ def bound(work):
 def check_lanes(fp, dev):
     """Lane-batched K1 and K2: every lane against the plain version at
     FWD_TOL / GRAD_TOL and bitwise against the L=1 launch on that lane's
-    inputs; device time per launch beside L x the L=1 time.  Returns the
-    max errors (K1, K2)."""
+    inputs; device time per launch beside L x the L=1 time, and for
+    ``LANE_ROWS`` the plain versions' time.  Returns the max errors (K1,
+    K2) and the ``LANE_ROWS`` records (K1 rows, K2 rows)."""
     worst = [0.0, 0.0]
-    for use_poly, P, M, lane_counts in LANE_CASES:
-        kind = "se+p2" if use_poly else "se"
+    rows = ([], [])
+    for use_poly, P, M, lane_counts, *gd in LANE_CASES:
+        g, d = gd or (G, D)
+        kind = ("se+p2" if use_poly else "se") + ("" if d == D else f" D={d}")
         one_us = None
         for L in lane_counts:
-            per = [kernel_inputs(P, M, seed=7 + P + M + 1000 * l, dev=dev) for l in range(L)]
+            per = [kernel_inputs(P, M, seed=7 + P + M + 1000 * l, dev=dev, G=g, D=d)
+                   for l in range(L)]
             args = [torch.stack(ts) for ts in zip(*per)]
-            wk, wq = (torch.stack([(l + 1.0) * w for l in range(L)]) for w in cotangents(P, dev))
+            wk, wq = (torch.stack([(l + 1.0) * w for l in range(L)])
+                      for w in cotangents(P, dev, g))
             ka, qd, kf = fp.fused_gram_contract(*args, use_poly, return_kf=True)
             dx = fp.fused_gram_contract_bwd_xstar(*args, kf, wk, wq, use_poly)
             errs = [0.0, 0.0]
@@ -430,13 +490,26 @@ def check_lanes(fp, dev):
                     *args, kf, wk, wq, use_poly)), "k2_backward_xstar"),
             }
             one_us = one_us or per_us
-            b1, b2 = (bound(w(L, P, M, use_poly))[0] for w in (k1_work, k2_work))
+            b1, b2 = (bound(w(L, P, M, use_poly, G=g, D=d)) for w in (k1_work, k2_work))
             print(f"  lanes {kind:5s} L={L} P={P} M={M}: every lane bitwise equal to its L=1 "
                   f"launch; max err K1 {errs[0]:.3e} K2 {errs[1]:.3e} | device us per launch: "
                   f"K1 {per_us['k1']:.2f} (L x L=1: {L * one_us['k1']:.2f}, bound "
-                  f"{1e3 * b1:.2f}), K2 {per_us['k2']:.2f} (L x L=1: {L * one_us['k2']:.2f}, "
-                  f"bound {1e3 * b2:.2f}); blocks {fp.launch_blocks(G, P, M, L)}", flush=True)
-    return tuple(worst)
+                  f"{1e3 * b1[0]:.2f}), K2 {per_us['k2']:.2f} (L x L=1: {L * one_us['k2']:.2f}, "
+                  f"bound {1e3 * b2[0]:.2f}); blocks {fp.launch_blocks(g, P, M, L)}", flush=True)
+            if (use_poly, P, M, L, d) in LANE_ROWS:
+                plain = {
+                    "k1": 1e-3 * sum(device_us(lambda: fp.reference_gram_contract(
+                        *args, use_poly)).values()),
+                    "k2": 1e-3 * sum(device_us(lambda: fp.reference_gram_contract_bwd_xstar(
+                        *args, kf, wk, wq, use_poly)).values()),
+                }
+                shape = f"{'se+p2' if use_poly else 'se'} D={d} G={g} L={L} P={P} M={M}"
+                for i, (k, b, e) in enumerate((("k1", b1, errs[0]), ("k2", b2, errs[1]))):
+                    rows[i].append(dict(shape=shape, ms=1e-3 * per_us[k], plain_ms=plain[k],
+                                        bound_ms=b[0], bound_by=b[1], max_abs_err=e))
+                print(f"  lanes {shape}: plain versions K1 {plain['k1']:.4f} ms, K2 "
+                      f"{plain['k2']:.4f} ms per call", flush=True)
+    return tuple(worst), rows
 
 
 def check_predict_lanes(dev):
@@ -628,8 +701,8 @@ def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, tri
     ``trials`` of another agent on the same plant), fit the GP for
     ``epochs`` epochs, hold K1 (where the kernel structure has one) and the
     plain path on the fitted posterior against float64, then time 10
-    optimizer steps at full width after 5 warm-up steps, or with
-    ``profile`` 3 as the host window of the step profile; with kernels the
+    optimizer steps at full width after 2 warm-up steps, or with
+    ``profile`` 2 as the host window of the step profile; with kernels the
     learning-curve check."""
     from mcpilco_tpu_torch.control.mc_pilco import ModelFitOptions
     from mcpilco_tpu_torch.utils import prng
@@ -663,14 +736,14 @@ def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, tri
                                p_dropout0=0.25)
         torch.cuda.synchronize()
 
-    timed = 3 if profile else 10
+    timed = 2 if profile else 10
     if profile:
-        # the timed steps are the profile's host window: (run(4) - run(1)) / 3;
-        # busy over 3 - 1 profiled steps (~47K events each at horizon 150)
-        p = profile_steps(run, host_steps=timed, window=3)
+        # the timed steps are the profile's host window: (run(3) - run(1)) / 2;
+        # busy over 2 - 1 profiled steps (~47K events each at horizon 150)
+        p = profile_steps(run, host_steps=timed, window=2)
         res, ms_step, steps = runs[timed + 1], p["host_ms"], timed + 1
     else:
-        run(5)
+        run(2)
         t_opt = time.perf_counter()
         run(timed)
         res, ms_step, steps = runs[timed], 1e3 * (time.perf_counter() - t_opt) / timed, timed
@@ -771,7 +844,6 @@ def profile_steps(run, host_repeats=1, host_steps=10, window=5):
     1 - busy / host."""
     from collections import Counter
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run(1)
@@ -787,8 +859,8 @@ def profile_steps(run, host_repeats=1, host_steps=10, window=5):
     def profiled(n):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run(n)
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        return sum(e.time_range.elapsed_us() for e in events), Counter(e.name for e in events)
+        events = device_records(prof)
+        return sum(us for _, us in events), Counter(name for name, _ in events)
 
     (us1, c1), (usn, cn) = profiled(1), profiled(window)
     busy = 1e-3 * (usn - us1) / (window - 1)
@@ -807,28 +879,32 @@ def lane_runner(agent, keys, params, gp_params, post, trial_index):
     return run
 
 
-def farm_phase(fp, dev):
-    """Phase 7: the flagship seed farm at full width through ``SeedFarm.run``;
-    returns its kernel launches."""
-    from mcpilco_tpu_torch.models.gp import tree_map
+def run_farm(fp, dev, scen, cfg, seeds, kernels, host_plant=False):
+    """``SeedFarm.run`` over ``seeds`` of ``scen.build(cfg, dev)`` (with
+    ``host_plant`` its plant behind :class:`HostODEPlant`), its K1/K2
+    launches counted from 0: with ``kernels`` every launch carries one lane
+    per seed, else there is none.  Returns (agent, farm, result, launches)."""
     from mcpilco_tpu_torch.parallel.multiseed import SeedFarm
-    from mcpilco_tpu_torch.scenarios import cartpole
-    from mcpilco_tpu_torch.utils import prng
 
-    S = FARM_SEEDS
-    cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500)
-    agent, kwargs = cartpole.build(cfg, dev)
-    farm = SeedFarm(agent, list(range(1, S + 1)),
-                    policy_init_fn=lambda k: cartpole.policy_init(cfg, agent.policy, k, dev))
+    agent, kwargs = scen.build(cfg, dev)
+    if host_plant:
+        agent.plant = HostODEPlant(agent.plant)
+    S = len(seeds)
+    farm = SeedFarm(agent, list(seeds),
+                    policy_init_fn=lambda k: scen.policy_init(cfg, agent.policy, k, dev))
     fp.reset_launches()
     t0 = time.perf_counter()
     res = farm.run(**kwargs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches, lanes = dict(fp.launches), dict(fp.launched_lanes)
-    if min(launches.values()) == 0 or any(lanes[k] != S * launches[k] for k in launches):
+    if kernels and (min(launches.values()) == 0
+                    or any(lanes[k] != S * launches[k] for k in launches)):
         raise RuntimeError(f"the farm did not run K1/K2 with {S} lanes: launches {launches}, "
                            f"lanes {lanes}")
+    if not kernels and max(launches.values()) > 0:
+        raise RuntimeError(f"the farm launched K1/K2 for a model without a kernel structure: "
+                           f"{launches}")
     for t, log in enumerate(res.trial_logs):
         hist = [log.cost_history[i, : log.steps_done[i]] for i in range(S)]
         if min(log.steps_done) == 0 or not all(np.all(np.isfinite(h)) for h in hist):
@@ -839,51 +915,315 @@ def farm_phase(fp, dev):
     final = res.final_true
     if any(np.allclose(final[i], final[j]) for i in range(S) for j in range(i)):
         raise RuntimeError("two farmed seeds ended with the same trajectory")
+    M = farm.posterior.x_tr.shape[1]
+    per = (f", lanes per launch {lanes['fwd'] // launches['fwd']}; blocks per launch at M={M}: "
+           f"{fp.launch_blocks(agent.gp.num_heads, agent.optimizer.num_particles, M, S)}"
+           if kernels else f" (M={M})")
     print(f"  farm of {S} seeds, {len(res.trial_logs)} trials in {run_s:.1f} s; launches "
-          f"{launches}, lanes per launch {lanes['fwd'] // launches['fwd']}; blocks per launch "
-          f"at M={farm.posterior.x_tr.shape[1]}: "
-          f"{fp.launch_blocks(G, agent.optimizer.num_particles, farm.posterior.x_tr.shape[1], S)}",
-          flush=True)
+          f"{launches}{per}", flush=True)
+    return agent, farm, res, launches
 
-    # the farm's optimizer step against one seed's, on the last posterior
+
+def farm_step_profile(agent, farm, host_steps, window, lane_one=False):
+    """The farm's optimizer step on its last posteriors beside one seed's
+    (the seed's posterior without a lane axis: the single-seed step), and
+    with ``lane_one`` beside that seed kept as a lane axis of size 1, which
+    must not issue more device events per step than the single-seed step.
+    The profiler's count of one step moves by up to ~0.4% between windows
+    of the same code (H100 runs); the trap this guards against (autograd
+    adding two reductions and two fills per rollout step) adds ~1.35% to a
+    4PMS step, so the check fails above +0.7%.  Returns the profiles."""
+    from mcpilco_tpu_torch.models.gp import tree_map
+    from mcpilco_tpu_torch.utils import prng
+
+    S = len(farm.seeds)
     keys = [prng.fold(prng.stream(k, prng.STREAM_ROLLOUT), 1) for k in farm.keys]
+    first = lambda tree: tree_map(lambda t: t[:1], tree)
     one = lambda tree: tree_map(lambda t: t[0], tree)
-    farm_p = profile_steps(lane_runner(agent, keys, farm.policy_params, farm.gp_params,
-                                       farm.posterior, 1), host_steps=5, window=3)
-    one_p = profile_steps(lane_runner(agent, keys[:1],
-                                      {k: v[:1] for k, v in farm.policy_params.items()},
-                                      one(farm.gp_params), one(farm.posterior), 1),
-                          host_steps=5, window=3)
-    print(f"  farm step, S={S}: {farm_p['host_ms']:.2f} ms/step of all seeds against S x one "
-          f"seed's {S * one_p['host_ms']:.2f} (one seed {one_p['host_ms']:.2f}); device busy "
-          f"{farm_p['busy_ms']:.2f} ms/step (one seed {one_p['busy_ms']:.2f}); device events "
-          f"per step {farm_p['events']:.0f} (one seed {one_p['events']:.0f}); idle share "
-          f"{farm_p['idle']:.3f} (one seed {one_p['idle']:.3f})", flush=True)
+    runs = {"farm": lane_runner(agent, keys, farm.policy_params, farm.gp_params, farm.posterior, 1),
+            "one": lane_runner(agent, keys[:1], first(farm.policy_params), one(farm.gp_params),
+                               one(farm.posterior), 1)}
+    if lane_one:
+        runs["lane1"] = lane_runner(agent, keys[:1], first(farm.policy_params),
+                                    first(farm.gp_params), first(farm.posterior), 1)
+    p = {k: profile_steps(run, host_steps=host_steps, window=window) for k, run in runs.items()}
+    f, o = p["farm"], p["one"]
+    print(f"  farm step, S={S}: {f['host_ms']:.2f} ms/step of all seeds ({f['host_ms'] / S:.2f} "
+          f"ms/seed-step) against S x one seed's {S * o['host_ms']:.2f} (one seed "
+          f"{o['host_ms']:.2f}); device busy {f['busy_ms']:.2f} ms/step (one seed "
+          f"{o['busy_ms']:.2f}); device events per step {f['events']:.0f} (one seed "
+          f"{o['events']:.0f}); idle share {f['idle']:.3f} (one seed {o['idle']:.3f})", flush=True)
+    if lane_one:
+        l1 = p["lane1"]
+        a, b = l1["events_by_kernel"], o["events_by_kernel"]
+        diff = sorted(((k, a.get(k, 0.0) - b.get(k, 0.0)) for k in a.keys() | b.keys()
+                       if a.get(k, 0.0) != b.get(k, 0.0)), key=lambda kv: -abs(kv[1]))
+        print(f"  one seed as a lane axis of size 1: {l1['host_ms']:.2f} ms/step, device busy "
+              f"{l1['busy_ms']:.2f} ms/step, device events per step {l1['events']:.1f} against "
+              f"the single-seed step's {o['events']:.1f}; by kernel (lane axis - single): "
+              f"{', '.join(f'{k[:40]} {v:+.1f}' for k, v in diff[:6]) or 'equal'}", flush=True)
+        if l1["events"] > 1.007 * o["events"]:
+            raise RuntimeError(f"a lane axis of size 1 added device events to the step: "
+                               f"{l1['events']} against {o['events']}")
+    return p
 
-    # one seed's first 10 steps, farmed and trained alone
+
+def farmed_against_alone(scen, cfg, farm, res, dev, steps, tol):
+    """The second seed's first ``steps`` costs of trial 0, farmed and trained
+    alone: the largest gap relative to the cost alone must stay below
+    ``tol``."""
     i = 1
-    alone, kw = cartpole.build(dataclasses.replace(cfg, seed=farm.seeds[i], num_trials=1,
-                                                   opt_steps=(10,)), dev)
+    alone, kw = scen.build(dataclasses.replace(cfg, seed=farm.seeds[i], num_trials=1,
+                                               opt_steps=(steps,)), dev)
     alone.reinforce(**kw, verbose=False)
     a = alone.trial_logs[0].cost_history
-    f = res.trial_logs[0].cost_history[i, :10]
+    f = res.trial_logs[0].cost_history[i, :steps]
     gap = float(np.max(np.abs(f - a) / np.abs(a)))
-    print(f"  seed {farm.seeds[i]}, 10 steps of trial 0, farmed: {' '.join(f'{v:.4f}' for v in f)}",
-          flush=True)
-    print(f"  seed {farm.seeds[i]}, 10 steps of trial 0, alone:  {' '.join(f'{v:.4f}' for v in a)}"
-          f" (largest gap {gap:.2e} relative)", flush=True)
+    print(f"  seed {farm.seeds[i]}, {steps} steps of trial 0, farmed: "
+          f"{' '.join(f'{v:.4f}' for v in f)}", flush=True)
+    print(f"  seed {farm.seeds[i]}, {steps} steps of trial 0, alone:  "
+          f"{' '.join(f'{v:.4f}' for v in a)} (largest gap {gap:.2e} relative)", flush=True)
+    if not gap < tol:
+        raise RuntimeError(f"the farmed seed left the seed trained alone: gap {gap:.2e}")
+    return gap
+
+
+def farm_phase(fp, dev):
+    """Phase 7: the flagship seed farm at full width through ``SeedFarm.run``;
+    returns its kernel launches."""
+    from mcpilco_tpu_torch.scenarios import cartpole
+
+    cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500)
+    agent, farm, res, launches = run_farm(fp, dev, cartpole, cfg, range(1, FARM_SEEDS + 1),
+                                          kernels=True)
+    farm_step_profile(agent, farm, host_steps=2, window=2)
     # the fits sum in another order when batched; 10 BPTT steps stay close
     # (5.77e-05 on the H100, while two seeds' costs differ by ~4e-3)
-    if not gap < 1e-3:
-        raise RuntimeError(f"the farmed seed left the seed trained alone: gap {gap:.2e}")
+    farmed_against_alone(cartpole, cfg, farm, res, dev, 10, 1e-3)
     return launches
+
+
+def pms_estimator_check(agent, farm, cfg, dev):
+    """The 4PMS farm's exploration trials rolled again from the same keys:
+    the device estimator (``offline_velocity_estimation_lanes``) against the
+    host ``offline_velocity_estimation`` per seed and column (largest error
+    relative to the column's max-abs, at most 1e-5), and the farm's stored
+    training pairs equal to the pairs of the device estimate."""
+    from mcpilco_tpu_torch.envs.plants import (offline_velocity_estimation,
+                                               offline_velocity_estimation_lanes)
+    from mcpilco_tpu_torch.utils import prng
+
+    keys = [prng.fold(prng.stream(k, prng.STREAM_SYSTEM), 0) for k in farm.keys]
+    x0 = np.stack([farm._sample_x0(k, 0) for k in farm.keys])
+    trial = agent.plant.rollout_lanes(keys, x0, agent.exploration_policy, farm.expl_params,
+                                      cfg.T_exploration, agent.dt, device=dev)
+    opts = dict(pos_indices=agent.model.pos_indices, vel_indices=agent.model.vel_indices,
+                filt_cutoff=agent.offline_filter_cutoff, method=agent.offline_filter_method)
+    est, inputs = offline_velocity_estimation_lanes(
+        torch.as_tensor(trial.noisy, device=dev), torch.as_tensor(trial.inputs, device=dev),
+        agent.dt, **opts)
+    torch.cuda.synchronize()
+    est, inputs = est.cpu().numpy(), inputs.cpu().numpy()
+    cols = list(agent.model.pos_indices) + list(agent.model.vel_indices)
+    errs = []
+    for i in range(len(farm.seeds)):
+        host, _ = offline_velocity_estimation(trial.noisy[i], trial.inputs[i], agent.dt, **opts)
+        errs.append(np.max(np.abs(est[i] - host)[:, cols], axis=0)
+                    / np.max(np.abs(host)[:, cols], axis=0))
+        x, y = agent.model.training_pairs(torch.as_tensor(est[i]), torch.as_tensor(inputs[i]))
+        n = x.shape[0]
+        if not (np.array_equal(farm.gp_x[i, :n], x.numpy())
+                and np.array_equal(farm.gp_y[i, :, :n], y.numpy())):
+            raise RuntimeError(f"seed {farm.seeds[i]}: the farm's training pairs differ from "
+                               f"those of the device estimate")
+    errs = np.stack(errs)
+    print(f"  4PMS device estimator ({agent.offline_filter_method}) against the host path on "
+          f"the farm's {len(farm.seeds)} exploration trials ({trial.noisy.shape[1]} samples): "
+          f"largest error per seed over the columns, relative to the column's max-abs "
+          f"{errs.max(axis=1).tolist()}; the farm's training pairs are those of the device "
+          f"estimate", flush=True)
+    if not errs.max() <= 1e-5:
+        raise RuntimeError(f"the device estimator left the host path: {errs}")
+    return float(errs.max())
+
+
+def legacy_variance_check(agent, farm, fp, dev):
+    """The 4PMS farm's posteriors built on its whole dataset in the factor
+    form and under the legacy variance operator, at 400 inputs per seed
+    drawn from its data.  ``MultiGP.predict`` on the card launches K1 on the
+    factor form and no kernel under the legacy operator (K1/K2 take the
+    factor form).  In float64, on the card, the two operators predict the
+    same (rtol 1e-6).  In float32 the legacy quad sum((k* K^-1) * k*)
+    cancels against the prior variance where F's squared sum does not: both
+    float32 predictions are held against the float64 one, the legacy mean
+    no less accurate than K1's (within 4x, plus 1e-6), the legacy variance's
+    error printed beside the factor form's."""
+    from mcpilco_tpu_torch.models import gp as gp_mod
+    from mcpilco_tpu_torch.models.gp import GPData, tree_map
+
+    rng = np.random.default_rng(2)
+    n = farm.gp_x.shape[1]
+    xs = torch.as_tensor(np.stack([x[rng.integers(0, n, 400)] for x in farm.gp_x]), device=dev)
+    data = farm._padded_data()
+    data64 = GPData(*(t.double() for t in data))
+    params64 = tree_map(torch.Tensor.double, farm.gp_params)
+    gp = agent.gp
+    out = {}
+    with torch.no_grad():
+        for legacy in (False, True):
+            gp_mod.use_legacy_variance_op(legacy)
+            try:
+                post = farm._build_posterior(data)
+                fp.reset_launches()
+                mean, var = gp.predict(farm.gp_params, post, xs)
+                torch.cuda.synchronize()
+                launched = dict(fp.launches)
+                m64, v64 = gp._predict_plain(params64, gp.fit_posterior(params64, data64),
+                                             xs.double())
+                out[legacy] = (mean.double(), var.double(), launched, m64, v64)
+            finally:
+                gp_mod.use_legacy_variance_op(False)
+    (m_f, v_f, factor, m64, v64), (m_l, v_l, legacy, m64_l, v64_l) = out[False], out[True]
+    if factor != {"fwd": 1, "bwd": 0} or legacy != {"fwd": 0, "bwd": 0}:
+        raise RuntimeError(f"predict launches: factor form {factor}, legacy operator {legacy}")
+    torch.testing.assert_close(m64_l, m64, rtol=1e-6, atol=1e-9)
+    torch.testing.assert_close(v64_l, v64, rtol=1e-6, atol=1e-9)
+    errs = {name: (max_err(m, m64), max_err(v, v64))
+            for name, m, v in (("K1, factor form", m_f, v_f), ("legacy, plain", m_l, v_l))}
+    print(f"  legacy variance operator (K^-1 stored, M={data.x.shape[1]}): predict on the card "
+          f"launched {legacy} (factor form {factor}); float64 legacy against float64 factor "
+          f"form: max err mean {max_err(m64_l, m64):.3e}, var {max_err(v64_l, v64):.3e}; float32 "
+          f"against float64 at {tuple(xs.shape)} (max |mean| {float(m64.abs().max()):.3e}, max "
+          f"var {float(v64.max()):.3e}): "
+          + " | ".join(f"{k} mean err {e[0]:.3e} var err {e[1]:.3e}" for k, e in errs.items())
+          + f"; legacy against factor form, float32: mean {max_err(m_l, m_f):.3e}, var "
+          f"{max_err(v_l, v_f):.3e}", flush=True)
+    e_k, e_l = errs["K1, factor form"], errs["legacy, plain"]
+    if not (all(math.isfinite(e) for e in (*e_k, *e_l)) and e_l[0] <= 4 * e_k[0] + 1e-6):
+        raise RuntimeError(f"legacy variance operator on the card: {errs}")
+    return errs
+
+
+class HostODEPlant:
+    """The flagship's ODE plant behind a host plant's ``rollout()``
+    protocol, not an ``ODEPlant``: the farm collects from it seed by seed
+    (``SeedFarm._collect_host``), as from a MuJoCo plant, which the card's
+    machine cannot run."""
+
+    def __init__(self, plant):
+        self.plant = plant
+
+    def rollout(self, key, s0, policy, policy_params, T, dt, device="cuda"):
+        return self.plant.rollout(key, s0, policy, policy_params, T, dt, device=device)
+
+
+def host_plant_farm(fp, dev):
+    """Two flagship seeds, 1 trial of 3 steps, farmed once through the host
+    path and once through the device plant: training pairs within 1e-6,
+    costs finite.  Returns the host-plant farm's launches."""
+    from mcpilco_tpu_torch.scenarios import cartpole
+
+    cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(3,), gp_epochs=300)
+    out = {}
+    for host in (True, False):
+        _, farm, res, launches = run_farm(fp, dev, cartpole, cfg, (1, 2), kernels=True,
+                                          host_plant=host)
+        if farm._device_plant == host:
+            raise RuntimeError(f"host={host}: the farm took the wrong collection path")
+        out[host] = (farm, res, launches)
+    (fh, rh, launches), (fd, rd, _) = out[True], out[False]
+    err = max(float(np.max(np.abs(fh.gp_x - fd.gp_x))), float(np.max(np.abs(fh.gp_y - fd.gp_y))))
+    costs = rh.trial_logs[-1].cost_history
+    print(f"  host-plant farm (_collect_host), 2 seeds: training pairs {fh.gp_x.shape} against "
+          f"the device plant's, max err {err:.3e}; last costs "
+          f"{[round(float(c), 4) for c in costs[:, -1]]} (device plant "
+          f"{[round(float(c), 4) for c in rd.trial_logs[-1].cost_history[:, -1]]})", flush=True)
+    if not (err <= 1e-6 and np.all(np.isfinite(costs))):
+        raise RuntimeError(f"host-plant farm: pairs err {err}, costs {costs}")
+    return launches
+
+
+def farm_scenarios_phase(fp, dev):
+    """Phase 14: the seed farm over the other scenarios at full width, depth
+    cut.  (a) 4PMS over ``FARM_SEEDS`` seeds (P=400, horizon 90, exact 'se'
+    GP, BPTT clip 0.2, 500-epoch fits, 1 trial of 5 steps): K1/K2 with one
+    lane per seed, the device estimator against the host path, (e) the
+    legacy variance operator on the farm's posteriors, the step profile
+    beside one seed's and beside a lane axis of size 1, one seed's curve
+    farmed against alone within 5e-3.  (b) Furuta, the shipped
+    semiparametric model (plain predict, delta cap 3), 4 seeds, 1 trial of
+    3 steps: no launch, the step profile, farmed against alone.  (c) the
+    host-plant path.  (d) ``repeat --scenario cartpole_pms --farm``.
+    Returns the launches of the farms' main paths ((a), (c), (d)) and the
+    4PMS farm's launches with its optimizer steps."""
+    import os
+
+    from mcpilco_tpu_torch.scenarios import cartpole_pms, furuta
+    from mcpilco_tpu_torch.scripts import repeat
+
+    counted = []
+    t0 = time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        print(f"  ({name}) done in {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+
+    print("  (a) 4PMS:", flush=True)
+    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(5,), gp_epochs=500)
+    agent, farm, res, launches = run_farm(fp, dev, cartpole_pms, cfg, range(1, FARM_SEEDS + 1),
+                                          kernels=True)
+    counted.append(launches)
+    pms = dict(launches=launches, optimizer_steps=int(res.trial_logs[0].steps_done.max()))
+    pms_estimator_check(agent, farm, cfg, dev)
+    legacy_variance_check(agent, farm, fp, dev)
+    farm_step_profile(agent, farm, host_steps=2, window=2, lane_one=True)
+    # the sensor chain has gain 1/dt = 30: the CPU test's tolerance
+    farmed_against_alone(cartpole_pms, cfg, farm, res, dev, 5, 5e-3)
+    del agent, farm, res
+    part("a")
+
+    print("  (b) Furuta, semiparametric:", flush=True)
+    cfg = furuta.FurutaConfig(seed=1, num_trials=1, opt_steps=(3,), gp_epochs=500)
+    agent, farm, res, _ = run_farm(fp, dev, furuta, cfg, range(1, FARM_SEEDS + 1), kernels=False)
+    farm_step_profile(agent, farm, host_steps=2, window=2)
+    farmed_against_alone(furuta, cfg, farm, res, dev, 3, 5e-3)
+    del agent, farm, res
+    part("b")
+
+    print("  (c) the host-plant path:", flush=True)
+    counted.append(host_plant_farm(fp, dev))
+    part("c")
+
+    print("  (d) repeat --scenario cartpole_pms --farm:", flush=True)
+    summary_path = os.path.join("results_tmp", "torch", "repeat_cartpole_pms_chip_smoke.json")
+    if os.path.exists(summary_path):
+        os.remove(summary_path)
+    fp.reset_launches()
+    rc = repeat.main(["--scenario", "cartpole_pms", "--farm", "--num-seeds", "2", "--trials", "1",
+                      "--device", str(dev), "--out-tag", "chip_smoke",
+                      "--scenario-kw", "opt_steps=(3,)", "--scenario-kw", "gp_epochs=300"])
+    torch.cuda.synchronize()
+    counted.append(dict(fp.launches))
+    with open(summary_path) as f:
+        summary = json.load(f)
+    seed_costs = list(summary["per_seed_cost"].values())
+    if rc != 0 or summary["seeds"] != [1, 2] or not summary["complete"] or not all(
+            c is not None and math.isfinite(c) for c in seed_costs) or \
+            fp.launches["fwd"] == 0 or fp.launched_lanes["fwd"] != 2 * fp.launches["fwd"]:
+        raise RuntimeError(f"repeat --farm cartpole_pms: rc {rc}, summary {summary}, launches "
+                           f"{fp.launches}, lanes {fp.launched_lanes}")
+    print(f"  repeat --farm cartpole_pms, 2 seeds: costs {seed_costs}, success rate "
+          f"{summary['success_rate']}, launches {counted[-1]}", flush=True)
+    part("d")
+    return {k: sum(c[k] for c in counted) for k in ("fwd", "bwd")}, pms
 
 
 def restart_phase(fp, dev):
     """Phase 8: a 1-trial 4PMS ``reinforce`` with two restart lanes."""
     from mcpilco_tpu_torch.scenarios import cartpole_pms
 
-    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(5,), num_restarts=2,
+    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(3,), num_restarts=2,
                                          gp_epochs=500)
     agent, kwargs = cartpole_pms.build(cfg, dev)
     launches = main_path((agent, kwargs), fp)
@@ -951,7 +1291,7 @@ def same_logs(a, b):
 
 def entry_points_phase(fp, dev):
     """Phase 12: the user's entry points at full flagship width (depth cut to
-    10 optimizer steps per trial and 500-epoch fits), with checkpoints under
+    5 optimizer steps per trial and 300-epoch fits), with checkpoints under
     the ignored ``results_tmp/``.  (a) ``build`` + ``reinforce`` of 2 of the
     config's 3 trials, a run interrupted after trial 1; every stage
     checkpoint loaded on a fresh agent, its arrays held bitwise against the
@@ -973,7 +1313,7 @@ def entry_points_phase(fp, dev):
     shutil.rmtree(log_dir, ignore_errors=True)
     if os.path.exists(summary_path):
         os.remove(summary_path)
-    cfg = cartpole.CartpoleConfig(seed=1, num_trials=3, opt_steps=(10,), gp_epochs=500,
+    cfg = cartpole.CartpoleConfig(seed=1, num_trials=3, opt_steps=(5,), gp_epochs=300,
                                   log_dir=log_dir)
     counted = []
 
@@ -1067,7 +1407,7 @@ def entry_points_phase(fp, dev):
     fp.reset_launches()
     rc = repeat.main(["--scenario", "cartpole", "--farm", "--num-seeds", "2", "--device", str(dev),
                       "--out-tag", "chip_smoke", "--scenario-kw", "num_trials=1",
-                      "--scenario-kw", "opt_steps=(10,)", "--scenario-kw", "gp_epochs=500"])
+                      "--scenario-kw", "opt_steps=(5,)", "--scenario-kw", "gp_epochs=300"])
     count("d")
     with open(summary_path) as f:
         summary = json.load(f)
@@ -1108,8 +1448,9 @@ def ur5_fitted(cfg, trials, fp, dev):
 
 
 def ur5_step_profile(agent, fp, label):
-    """10 timed optimizer steps as the host window of the step profile; the
-    costs finite, the kernels launched where the structure has them."""
+    """``UR5_STEPS`` timed optimizer steps as the host window of the step
+    profile; the costs finite, the kernels launched where the structure has
+    them."""
     from mcpilco_tpu_torch.utils import prng
 
     runs = {}
@@ -1120,10 +1461,10 @@ def ur5_step_profile(agent, fp, label):
         torch.cuda.synchronize()
 
     fp.reset_launches()
-    p = profile_steps(run, host_steps=10, window=2)
-    res = runs[11]
+    p = profile_steps(run, host_steps=UR5_STEPS, window=2)
+    res = runs[UR5_STEPS + 1]
     costs = res.cost_history[: res.steps_done].numpy()
-    if res.steps_done != 11 or not np.all(np.isfinite(costs)):
+    if res.steps_done != UR5_STEPS + 1 or not np.all(np.isfinite(costs)):
         raise RuntimeError(f"UR5 {label}: {res.steps_done} steps, costs {costs}")
     kernels = agent.gp._fused_structure() is not None
     if (min(fp.launches.values()) > 0) != kernels or (max(fp.launches.values()) > 0) != kernels:
@@ -1206,8 +1547,8 @@ def ur5_phase(fp, dev):
     step profile, remat on/off; then ``poly_degree=2`` on the same trials
     (K1/K2 in their wide path at D=24 G=6 P=200 M=448) with the per-trial
     cost curriculum: fit, float64 check, step profile, K1/K2 on the fitted
-    posterior; then the HIL main path: ``improve_policy`` of 10 steps (the
-    kernel side of the learning curve, held against the same 10 steps
+    posterior; then the HIL main path: ``improve_policy`` of ``UR5_STEPS`` steps (the
+    kernel side of the learning curve, held against the same steps
     through ``_predict_plain``), ``export_policy_csv`` and a checkpoint
     round trip.  Returns the main path's launches and the
     real-posterior kernel times."""
@@ -1219,7 +1560,7 @@ def ur5_phase(fp, dev):
     from mcpilco_tpu_torch.utils import prng
 
     trials = ur5.recorded_trials()
-    cfg = ur5.UR5Config(seed=1)
+    cfg = ur5.UR5Config(seed=1, gp_epochs=UR5_EPOCHS)
     agent = ur5_fitted(cfg, trials, fp, dev)
     if agent.gp._fused_structure() is not None:
         raise RuntimeError("UR5's default Sum(SE, MPK1) should have no fused structure")
@@ -1240,8 +1581,8 @@ def ur5_phase(fp, dev):
     ur5_step_profile(agent, fp, "se+p2, K1/K2")
     times = ur5_kernel_times(agent, fp, dev)
 
-    # the HIL main path, counted; its 10 steps are the kernel side of the
-    # learning curve, the same 10 steps through _predict_plain the other
+    # the HIL main path, counted; its steps are the kernel side of the
+    # learning curve, the same steps through _predict_plain the other
     log_dir = os.path.join("results_tmp", "torch", "chip_smoke_ur5")
     shutil.rmtree(log_dir, ignore_errors=True)
     agent.log_dir = log_dir
@@ -1249,8 +1590,8 @@ def ur5_phase(fp, dev):
     params0 = agent.policy_params
     fp.reset_launches()
     t0 = time.perf_counter()
-    log = agent.improve_policy(PolicyOptOptions(opt_steps=10, learning_rate=0.01, p_dropout=0.25),
-                               trial_index=0)
+    log = agent.improve_policy(PolicyOptOptions(opt_steps=UR5_STEPS, learning_rate=0.01,
+                                                p_dropout=0.25), trial_index=0)
     csvs = agent.export_policy_csv()
     agent.save_checkpoint("policy_trial0")
     fresh = ur5.build(cfg2, dev)[0]
@@ -1260,7 +1601,7 @@ def ur5_phase(fp, dev):
     hil_s = time.perf_counter() - t0
     if launches["fwd"] == 0 or launches["bwd"] == 0:
         raise RuntimeError(f"the UR5 HIL path did not launch K1/K2: {launches}")
-    if log.steps_done != 10 or not np.all(np.isfinite(log.cost_history)):
+    if log.steps_done != UR5_STEPS or not np.all(np.isfinite(log.cost_history)):
         raise RuntimeError(f"UR5 improve_policy: {log.steps_done} steps, {log.cost_history}")
     if not (same_tree(fresh.policy_params, agent.policy_params)
             and same_tree(fresh.gp_params, agent.gp_params)
@@ -1276,8 +1617,9 @@ def ur5_phase(fp, dev):
                               np.atleast_2d(want)):
             raise RuntimeError(f"exported {path} differs from the policy's {name}")
     plain = learning_run(agent, fp, "plain",
-                         prng.fold(prng.stream(agent.key, prng.STREAM_ROLLOUT), 0), params0, 10)
-    compare_curves({"kernel": log.cost_history, "plain": plain}, 10)
+                         prng.fold(prng.stream(agent.key, prng.STREAM_ROLLOUT), 0), params0,
+                         UR5_STEPS)
+    compare_curves({"kernel": log.cost_history, "plain": plain}, UR5_STEPS)
     print(f"  UR5 HIL path: improve_policy {log.steps_done} steps, cost "
           f"{log.cost_history[0]:.3f} -> {log.cost_history[-1]:.3f}, "
           f"{1e3 * log.wall_clock_s / log.steps_done:.2f} ms/step, reinits {log.reinit_count}; "
@@ -1379,7 +1721,7 @@ def main():
     parser.add_argument("--kernel-ab", default=None, metavar="PATH",
                         help="time K1/K2 of the checkout at PATH against this one's instead")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases 2-13 to run after the build (default all)")
+                        help="comma-separated phases 2-14 to run after the build (default all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's chip check has no CPU path",
@@ -1422,7 +1764,7 @@ def main():
         print(json.dumps({"ok": True, "device": device}))
         return 0
 
-    wanted = set(range(2, 14)) if args.phases is None else {int(v) for v in args.phases.split(",")}
+    wanted = set(range(2, 15)) if args.phases is None else {int(v) for v in args.phases.split(",")}
     paths, rec = [], None
     if 2 in wanted:
         t0 = time.perf_counter()
@@ -1439,7 +1781,7 @@ def main():
     if 4 in wanted:
         # the flagship's own build + reinforce runs in phase 12 (a)
         t0 = time.perf_counter()
-        cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(5,), gp_epochs=500,
+        cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(3,), gp_epochs=500,
                                       multi_init=True)
         paths.append(main_path(cartpole.build(cfg, dev), fp))
         phase("4 multi-init main path: build + reinforce (1 trial)", t0)
@@ -1453,7 +1795,7 @@ def main():
 
     if 6 in wanted:
         t0 = time.perf_counter()
-        cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(5,), gp_epochs=500)
+        cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(3,), gp_epochs=500)
         paths.append(main_path(cartpole_pms.build(cfg, dev), fp))
         phase("6 4PMS main path: build + reinforce (1 trial)", t0)
 
@@ -1482,7 +1824,7 @@ def main():
 
     if 10 in wanted:
         t0 = time.perf_counter()
-        cfg = furuta.FurutaConfig(seed=1, num_trials=1, opt_steps=(5,), gp_epochs=500)
+        cfg = furuta.FurutaConfig(seed=1, num_trials=1, opt_steps=(3,), gp_epochs=300)
         paths.append(main_path(furuta.build(cfg, dev), fp))
         cfg = dataclasses.replace(cfg, semiparametric=False)
         paths.append(main_path(furuta.build(cfg, dev), fp))
@@ -1510,8 +1852,21 @@ def main():
                 row.update(launches=ur5_launches[key], real_posterior_ms=1e-3 * ur5_times[kernel])
         phase("13 UR5 from the recorded trials: both models, remat, HIL path", t0)
 
+    if 14 in wanted:
+        t0 = time.perf_counter()
+        farm_launches, pms = farm_scenarios_phase(fp, dev)
+        paths.append(farm_launches)
+        if rec is not None:
+            # the 4PMS farm's shape of phase 2's lane rows: its launches in
+            # (a), over that run's optimizer steps (and their probe rollout)
+            for key in ("fwd", "bwd"):
+                row = next(r for r in rec[key]["by_shape"] if r["shape"].startswith(
+                    f"se D={D} G={G} L={FARM_SEEDS} P=400 M={M_SMALL}"))
+                row.update(launches=pms["launches"][key], optimizer_steps=pms["optimizer_steps"])
+        phase("14 the farm over 4PMS, Furuta, a host plant; repeat --farm; legacy variance", t0)
+
     print(smi, flush=True)  # again beside the results, for logs that keep only the end
-    if rec is None or wanted != set(range(2, 14)):
+    if rec is None or wanted != set(range(2, 15)):
         print(json.dumps({"ok": True, "device": device}))
         return 0
     src = "mcpilco_tpu_torch/csrc/fused_predict.cu"

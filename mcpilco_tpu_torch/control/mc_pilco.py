@@ -332,11 +332,16 @@ class MCPilco:
         with torch.no_grad():
             return self.gp.fit_posterior(self.gp_params, data)
 
+    def _sod_key(self):
+        """The key of the SOD / SOR candidate order (``SODConfig.permutation``)."""
+        return prng.fold(prng.stream(self.key, prng.STREAM_MODEL_FIT), self.num_collections)
+
     def _sor_posterior(self, data: GPData, info: Optional[dict] = None):
         """Greedy inducing selection, the optional SOR-MLL refinement of the
         hyperparameters (and inducing inputs), then the SOR posterior."""
         with torch.no_grad():
-            sel = sod_mod.select(self.gp, self.sor, self.gp_params, data.x, data.y, data.mask)
+            sel = sod_mod.select(self.gp, self.sor, self.gp_params, data.x, data.y, data.mask,
+                                 self._sod_key())
         if info is not None:
             info["sor_points"] = sel.sum(dim=-1).cpu().numpy().tolist()
         u = None
@@ -354,7 +359,8 @@ class MCPilco:
             return self.gp.sor_posterior(self.gp_params, data, sel, u=u)
 
     def _sod_posterior(self, data: GPData, info: Optional[dict] = None):
-        sel = sod_mod.select(self.gp, self.sod, self.gp_params, data.x, data.y, data.mask)
+        sel = sod_mod.select(self.gp, self.sod, self.gp_params, data.x, data.y, data.mask,
+                             self._sod_key())
         sel_np = sel.cpu().numpy() > 0.5
         if info is not None:
             info["sod_points"] = sel_np.sum(axis=-1).tolist()

@@ -9,7 +9,10 @@ bucketed capacity with a validity mask (``ops/linalg.py``).
 Math (as in the JAX package):
 - MLL loss = 0.5 (y^T K^-1 y + log|K|), the N log 2 pi constant dropped.
 - Posterior cache {alpha, F = L^-T, X_tr}: mean = m* + k*^T alpha,
-  var = k**_diag - sum((k* F)^2), floored at jitter * k**_diag.
+  var = k**_diag - sum((k* F)^2), floored at jitter * k**_diag.  Under the
+  legacy variance operator (``use_legacy_variance_op`` or
+  ``MCPILCO_LEGACY_VAR=1``) the cache holds V = K^-1 instead and the quad
+  term is sum((k* V) * k*): the same quantity, rounded otherwise.
 - Optional per-head max-abs output normalization, applied to both the fit
   and the posterior.
 
@@ -21,14 +24,16 @@ set of batched ops.  Inputs get a head axis of 1 (``_hx``) before they meet
 the kernel algebra, so [*L, 1, N, D] broadcasts against [*L, G, ...].
 
 ``predict`` dispatches on the device: on the card, the flagship kernel
-structures run the fused CUDA kernels (``ops/fused_predict.py``); on the
-CPU, the plain batched ops below.
+structures run the fused CUDA kernels (``ops/fused_predict.py``), which
+take the factor form; on the CPU, and under the legacy variance operator,
+the plain batched ops below.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -36,6 +41,35 @@ import torch
 from ..ops import fused_predict as fp
 from ..ops import linalg
 from . import kernels as K
+
+# The variance operator (mcpilco_tpu/models/gp.py:39-54).  Default: the
+# posterior stores the factor F = L^-T and quad = sum((k* F)^2).  Legacy:
+# it stores K^-1 (chol_inverse) and quad = sum((k* K^-1) * k*), the JAX
+# package's round-1 form and its A/B switch.  Set MCPILCO_LEGACY_VAR=1 or
+# call use_legacy_variance_op() before any posterior is built.
+_LEGACY_VAR = os.environ.get("MCPILCO_LEGACY_VAR", "0") == "1"
+
+
+def use_legacy_variance_op(enable: bool = True) -> None:
+    global _LEGACY_VAR
+    _LEGACY_VAR = enable
+
+
+def _var_operator(L, mask):
+    """The posterior's variance operator from the lower factor ``L``: F =
+    L^-T, or K^-1 under the legacy operator; masked rows and columns zero."""
+    if _LEGACY_VAR:
+        op = linalg.chol_inverse(L)
+    else:
+        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
+        op = torch.linalg.solve_triangular(L, eye, upper=False).mT
+    return op * (mask[..., :, None] * mask[..., None, :])
+
+
+def _quad(k_star, op):
+    """sum((k* F)^2), or sum((k* K^-1) * k*) under the legacy operator."""
+    kv = torch.matmul(k_star, op)
+    return torch.sum(kv * (k_star if _LEGACY_VAR else kv), dim=-1)
 
 
 class GPData(NamedTuple):
@@ -59,7 +93,8 @@ class Posterior(NamedTuple):
 
     ``x_tr`` [M, D] is shared by all heads (per-head subsets are per-head
     ``mask`` rows).  ``var_factor`` is F = L^-T (K^-1 = F F^T), so the quad
-    term is ``sum((k* F)^2)``.  ``norm`` rescales to output units.
+    term is ``sum((k* F)^2)``; K^-1 itself under the legacy variance
+    operator.  ``norm`` rescales to output units.
     """
 
     x_tr: torch.Tensor  # [M, D]
@@ -113,6 +148,10 @@ class MultiGP:
     jitter: float = 1e-4
     train_sigma_n: bool = True
     normalize_outputs: bool = False
+    # the plain predict's cross-gram k(x*, X) in column blocks of this many
+    # training points, which bounds its [*L, G, P, chunk, D] difference
+    # tensor (None: unchunked); K1/K2 form no such tensor and ignore it
+    gram_chunk: Optional[int] = None
 
     # ---------------- parameter init ----------------
 
@@ -250,7 +289,7 @@ class MultiGP:
         return _unflatten(params, p), torch.stack(history, dim=-1)
 
     def posterior(self, params: GPParams, x_tr, mask, y) -> Posterior:
-        """Build the cached posterior in factor form F = L^-T.
+        """Build the cached posterior (factor form F = L^-T, or K^-1).
         ``x_tr``: [*L, M, D] shared by the heads; ``mask``: [*L, G, M];
         ``y``: [*L, G, M]."""
         if self.normalize_outputs:
@@ -262,10 +301,8 @@ class MultiGP:
         L = linalg.masked_cholesky(Kn, mask)
         resid = (y / norm[..., None] - self._mean(params.kernel, x_tr)) * mask
         alpha = linalg.chol_solve(L, resid[..., None])[..., 0] * mask
-        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
-        F = torch.linalg.solve_triangular(L, eye, upper=False).mT
-        F = F * (mask[..., :, None] * mask[..., None, :])
-        return Posterior(x_tr=x_tr, mask=mask, alpha=alpha, var_factor=F, norm=norm)
+        return Posterior(x_tr=x_tr, mask=mask, alpha=alpha, var_factor=_var_operator(L, mask),
+                         norm=norm)
 
     def fit_posterior(self, params: GPParams, data: GPData) -> Posterior:
         """Posterior over the full (shared) dataset."""
@@ -281,8 +318,10 @@ class MultiGP:
         without lanes (restart lanes, which share one posterior) is folded
         into R * P particles of one call and returns [R, G, P].  On the card,
         the 'se' and 'se+p2' structures run the fused kernels; every other
-        case, and every CPU tensor, runs the plain batched ops.  SOR
-        posteriors go to :meth:`sor_predict` (no kernel, no lanes).
+        case, every CPU tensor, and every call under the legacy variance
+        operator (the kernels consume the factor form, as in the JAX
+        package), runs the plain batched ops.  SOR posteriors go to
+        :meth:`sor_predict` (no kernel, no lanes).
         """
         if self.approx == "sor":
             return self.sor_predict(params, post, x_star)
@@ -292,18 +331,25 @@ class MultiGP:
                 raise ValueError(f"x_star {tuple(x_star.shape)} does not match the posterior's "
                                  f"x_tr {tuple(post.x_tr.shape)}")
             return _folded(self.predict, params, post, x_star)
-        if x_star.is_cuda and self._fused_structure() is not None:
+        if x_star.is_cuda and self._fused_structure() is not None and not _LEGACY_VAR:
             return self._predict_fused(params, post, x_star)
         return self._predict_plain(params, post, x_star)
 
     def _predict_plain(self, params: GPParams, post: Posterior, x_star):
         kp = params.kernel
-        k_star = self.kernel.gram(kp, self._hx(x_star), self._hx(post.x_tr))
-        k_star = k_star * post.mask[..., None, :]  # [*L, G, P, M]
+        k_star = self._cross_gram(kp, x_star, post.x_tr) * post.mask[..., None, :]  # [*L, G, P, M]
         mean = self._mean(kp, x_star) + torch.einsum("...gpm,...gm->...gp", k_star, post.alpha)
-        kf = torch.matmul(k_star, post.var_factor)
-        quad = torch.sum(kf * kf, dim=-1)
-        return self._epilogue(kp, post, x_star, mean, quad)
+        return self._epilogue(kp, post, x_star, mean, _quad(k_star, post.var_factor))
+
+    def _cross_gram(self, kp, x_star, x_tr):
+        """k(x*, X) [*L, G, P, M], in column blocks of ``gram_chunk`` training
+        points (mcpilco_tpu/models/gp.py:194-214)."""
+        c, M = self.gram_chunk, x_tr.shape[-2]
+        hs = self._hx(x_star)
+        if c is None or M <= c:
+            return self.kernel.gram(kp, hs, self._hx(x_tr))
+        return torch.cat([self.kernel.gram(kp, hs, self._hx(x_tr[..., j:j + c, :]))
+                          for j in range(0, M, c)], dim=-1)
 
     def _epilogue(self, kp, post: Posterior, x_star, mean, quad):
         # floor at jitter * prior diag, not 0: near interpolation the true
@@ -343,6 +389,9 @@ class MultiGP:
     def _predict_fused(self, params: GPParams, post: Posterior, x_star):
         """Predict through :class:`~..ops.fused_predict.GramContract`, then
         add the prior mean, take diag - quad, floor and rescale."""
+        if _LEGACY_VAR:
+            raise ValueError("K1/K2 take the factor form F = L^-T; under the legacy variance "
+                             "operator the posterior holds K^-1 (use _predict_plain)")
         structure = self._fused_structure()
         kp = params.kernel
         dt, dev = x_star.dtype, x_star.device
@@ -373,7 +422,8 @@ class MultiGP:
     # (mcpilco_tpu/models/gp.py:439-636).  Its posterior reuses Posterior:
     # x_tr = U ([N, D] rows of the data, or trained per-head [G, M, D]),
     # mask = the selection [G, M], alpha = the SOR coefficients and
-    # var_factor = F with Sigma = (K_UU + sigma_n^-2 K_UX K_XU)^-1 = F F^T;
+    # var_factor = F with Sigma = (K_UU + sigma_n^-2 K_UX K_XU)^-1 = F F^T
+    # (Sigma itself under the legacy variance operator);
     #     mean* = m* + k(*, U) alpha,   var* = sum((k(*, U) F)^2),
     # floored at jitter * k**_diag.  The variance is the quad term itself,
     # not diag - quad, so SOR has its own predict.  No lane axis: the seed
@@ -410,8 +460,7 @@ class MultiGP:
         jit = linalg.adaptive_jitter(sigma_inv, sel, rel=self.jitter, floor=self.jitter)
         sigma_inv = sigma_inv + jit[:, None, None] * torch.diag_embed(sel)
         L = linalg.masked_cholesky(sigma_inv, sel)
-        eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
-        F = torch.linalg.solve_triangular(L, eye, upper=False).mT * m2
+        F = _var_operator(L, sel)
         rhs = K_xu.mT @ self._resid(kp, data, norm)[..., None]
         alpha = linalg.chol_solve(L, rhs)[..., 0] / noise[..., 0]
         return Posterior(x_tr=data.x if u is None else u, mask=sel, alpha=alpha * sel,
@@ -499,9 +548,8 @@ class MultiGP:
         k_star = self.kernel.gram(kp, self._hx(x_star), self._hu(post.x_tr))
         k_star = k_star * post.mask[..., None, :]
         mean = self._mean(kp, x_star) + torch.einsum("gpm,gm->gp", k_star, post.alpha)
-        kf = torch.matmul(k_star, post.var_factor)
         diag = self.kernel.diag(kp, self._hx(x_star)).expand(self.num_heads, x_star.shape[-2])
-        var = torch.maximum(torch.sum(kf * kf, dim=-1), self.jitter * diag)
+        var = torch.maximum(_quad(k_star, post.var_factor), self.jitter * diag)
         return mean * post.norm[:, None], var * (post.norm**2)[:, None]
 
 

@@ -43,6 +43,13 @@ def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
+def chol_inverse(L: torch.Tensor) -> torch.Tensor:
+    """Dense inverse of K from its lower Cholesky factor ``L``: the legacy
+    variance operator's posterior stores it (``models/gp.py``)."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
+    return chol_solve(L, eye)
+
+
 def masked_logdet_from_chol(L: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """log|K_valid| from the masked Cholesky factor (masked rows give log 1)."""
     d = torch.diagonal(L, dim1=-2, dim2=-1)

@@ -6,23 +6,29 @@ data, GP and posterior, with the seeds as a leading lane axis where the JAX
 package ``vmap``s over them:
 
 - **collect**: one RK4 loop rolls every seed's plant trial
-  (``ODEPlant.rollout_lanes``);
+  (``rollout_lanes`` of ``ODEPlant`` and ``PMSODEPlant``), and for 4PMS
+  one device call estimates every seed's velocities offline
+  (``offline_velocity_estimation_lanes``); a host plant (MuJoCo) rolls its
+  seeds one after another (``_collect_host``);
 - **fit**: one batched Adam over the S x G GP heads, with the NaN guard
-  acting per seed; per-seed SOD selection in one batched loop; the
+  acting per seed; per-seed SOD selection in one batched loop, each seed in
+  its own candidate order under ``SODConfig.permutation``; the
   posterior built at 1x / 10x / 100x jitter, and per seed the first finite
   one kept (``gp.first_finite``);
 - **optimize**: ``PolicyOptimizer.optimize_lanes`` with one lane per seed,
   whose predict launches K1/K2 once per rollout step for all seeds.
 
 The key derivations are those of the sequential ``MCPilco`` (``collect``,
-``_sample_x0``, ``improve_policy``), so a farmed seed draws what the same
-seed trained alone draws.  ``num_restarts > 1`` runs as sequential restart
+``_sample_x0``, ``_sod_key``, ``improve_policy``), so a farmed seed draws
+what the same seed trained alone draws.  ``num_restarts > 1`` runs as sequential restart
 lanes through the S-lane loop, keeping each seed's winner.
 
-Scope: ODE plants (the flagship and multi-init cart-pole).  SOR, offline
-filtering (the 4PMS farm needs a device-side offline velocity estimator),
-host plants and a device mesh raise.  The TPU runtime's chunk budgeting is
-not ported: the loop returns to the host every step.
+Scope: the plants of the JAX package's farm: ODE plants (the flagship and
+multi-init cart-pole, 4PMS, Furuta) on the device, any other plant with a
+``rollout()`` on the host.  SOR, a host plant with offline filtering, a
+plant without ``rollout()`` and a device mesh raise, as in the JAX farm.
+The TPU runtime's chunk budgeting is not ported: the loop returns to the
+host every step.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from ..control.mc_pilco import MCPilco, ModelFitOptions, PolicyOptOptions
-from ..envs.plants import ODEPlant
+from ..envs.plants import ODEPlant, offline_velocity_estimation_lanes
 from ..models import sod as sod_mod
 from ..models.gp import GPData, first_finite, tree_map
 from ..ops import linalg
@@ -99,13 +105,17 @@ class SeedFarm:
 
     def __post_init__(self):
         a = self.agent
+        # ODE plants roll all seeds in one loop on the device; any other plant
+        # (MuJoCo) runs seed by seed on the host through its rollout()
+        self._device_plant = isinstance(a.plant, ODEPlant)
+        if not self._device_plant and not hasattr(a.plant, "rollout"):
+            raise ValueError("the seed farm needs a plant with a rollout() protocol, got "
+                             f"{type(a.plant).__name__}")
+        if not self._device_plant and a.offline_filtering:
+            raise ValueError("the seed farm has no offline filtering for a host plant; train "
+                             "such seeds one at a time")
         if getattr(a, "sor", None) is not None:
             raise ValueError("the seed farm has no SOR path; train SOR seeds one at a time")
-        if a.offline_filtering:
-            raise ValueError("the seed farm does not run offline filtering (4PMS) yet: it needs "
-                             "a device-side offline velocity estimator")
-        if type(a.plant) is not ODEPlant:
-            raise ValueError(f"the seed farm rolls ODE plants only, got {type(a.plant).__name__}")
         if self.mesh is not None:
             raise ValueError("the seed farm runs on one card: no mesh")
         dev = a.device
@@ -137,23 +147,56 @@ class SeedFarm:
         return a.init_dist.sample_single(k).numpy()
 
     def collect(self, T: float, trial_index: int, exploration: bool) -> tuple:
-        """One plant trial per seed, in one RK4 loop (``MCPilco.collect``'s
-        keys); adds the trials to the seeds' datasets.  Returns the true
-        states [S, N, ds] and inputs [S, N, du]."""
+        """One plant trial per seed with ``MCPilco.collect``'s keys, in one
+        RK4 loop for an ODE plant, seed by seed for a host plant; adds the
+        trials to the seeds' datasets.  With offline filtering (4PMS) the
+        model data are every seed's offline estimates, made in one device
+        call.  Returns the true states [S, N, ds] and inputs [S, N, du],
+        trimmed to [1:-1] with offline filtering as the sequential path
+        trims them."""
         a = self.agent
+        if not self._device_plant:
+            return self._collect_host(T, trial_index, exploration)
         pol = a.exploration_policy if exploration else a.policy
         params = self.expl_params if exploration else self.policy_params
         x0 = np.stack([self._sample_x0(k, trial_index) for k in self.keys])
         keys = [prng.fold(prng.stream(k, prng.STREAM_SYSTEM), trial_index) for k in self.keys]
         trial = a.plant.rollout_lanes(keys, x0, pol, params, T, a.dt, device=a.device)
+        if not a.offline_filtering:
+            return self._add(trial.measured, trial.inputs, trial.true)
+        est, inputs = offline_velocity_estimation_lanes(
+            torch.as_tensor(trial.noisy, device=a.device),
+            torch.as_tensor(trial.inputs, device=a.device), a.dt, a.model.pos_indices,
+            a.model.vel_indices, filt_cutoff=a.offline_filter_cutoff,
+            method=a.offline_filter_method)
+        return self._add(est.cpu().numpy(), inputs.cpu().numpy(), trial.true[:, 1:-1])
+
+    def _collect_host(self, T: float, trial_index: int, exploration: bool) -> tuple:
+        """A host plant's trials (MuJoCo), seed by seed through its
+        ``rollout`` with the sequential path's keys and initial states."""
+        a = self.agent
+        pol = a.exploration_policy if exploration else a.policy
+        params = self.expl_params if exploration else self.policy_params
+        trials = [a.plant.rollout(prng.fold(prng.stream(k, prng.STREAM_SYSTEM), trial_index),
+                                  self._sample_x0(k, trial_index), pol,
+                                  {n: v[i] for n, v in params.items()}, T, a.dt,
+                                  device=a.device)
+                  for i, k in enumerate(self.keys)]
+        return self._add(*(np.stack([getattr(t, f) for t in trials])
+                           for f in ("measured", "inputs", "true")))
+
+    def _add(self, measured, inputs, true) -> tuple:
+        """Every seed's training pairs of one trial into its dataset:
+        ``measured`` [S, N, ds] and ``inputs`` [S, N, du] on the host."""
+        a = self.agent
         pairs = [a.model.training_pairs(torch.as_tensor(m, dtype=torch.float32),
                                         torch.as_tensor(u, dtype=torch.float32))
-                 for m, u in zip(trial.measured, trial.inputs)]
+                 for m, u in zip(measured, inputs)]
         self.gp_x = np.concatenate([self.gp_x, np.stack([x.numpy() for x, _ in pairs])], axis=1)
         self.gp_y = np.concatenate([self.gp_y, np.stack([y.numpy() for _, y in pairs])], axis=2)
         self.num_collections += 1
         self._tick()
-        return trial.true, trial.inputs
+        return true, inputs
 
     def _padded_data(self) -> GPData:
         a = self.agent
@@ -207,7 +250,9 @@ class SeedFarm:
         subsets as ``MCPilco._build_posterior_once`` does it, the seeds padded
         to the largest bucket: (x_tr [S, M, D], mask [S, G, M], y [S, G, M])."""
         a = self.agent
-        sel = sod_mod.select(gp, a.sod, self.gp_params, data.x, data.y, data.mask)
+        keys = [prng.fold(prng.stream(k, prng.STREAM_MODEL_FIT), self.num_collections)
+                for k in self.keys]
+        sel = sod_mod.select(gp, a.sod, self.gp_params, data.x, data.y, data.mask, keys)
         sel_np = sel.cpu().numpy() > 0.5
         unions = [np.where(s.any(axis=0))[0] for s in sel_np]
         m = max(linalg.bucket_size(len(u), a.bucket, a.bucket) for u in unions)

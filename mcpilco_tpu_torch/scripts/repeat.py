@@ -2,15 +2,18 @@
 rate and the quartiles of the final trial's cumulative cost.
 
     python -m mcpilco_tpu_torch.scripts.repeat --scenario cartpole --num-seeds 50
-    python -m mcpilco_tpu_torch.scripts.repeat --farm --farm-batch 8     # SeedFarm batches
+    python -m mcpilco_tpu_torch.scripts.repeat --farm-batch 8            # SeedFarm batches
+    python -m mcpilco_tpu_torch.scripts.repeat --scenario ur5            # one after another
     python -m mcpilco_tpu_torch.scripts.repeat --resume                  # skip finished seeds
 
-Seeds run one after another in this process, each through its train
-script's ``run`` in ``results_tmp/torch/<scenario>[_<tag>]_<seed>``, or with
-``--farm`` as lanes of ``parallel.multiseed.SeedFarm``, ``--farm-batch``
-seeds at a time (the flagship and multi-init cart-pole; the MuJoCo
-scenarios, ``cartpole_mujoco`` and ``ur5``, run only one after another).
-A UR5 seed succeeds when it tracks within 10 degrees RMS on every joint.  The summary,
+The seeds train as lanes of ``parallel.multiseed.SeedFarm``,
+``--farm-batch`` seeds at a time: by default for the scenarios whose plant
+runs on the device (``FARMABLE``), with ``--farm`` also for
+``cartpole_mujoco``, whose MuJoCo plant the farm steps seed by seed on the
+host.  Otherwise (``--no-farm``, and ``ur5``, which the farm does not
+take) they run one after another in this process, each through its train
+script's ``run`` in ``results_tmp/torch/<scenario>[_<tag>]_<seed>``.  A UR5
+seed succeeds when it tracks within 10 degrees RMS on every joint.  The summary,
 ``results_tmp/torch/repeat_<scenario>[_<tag>].json``, has the keys of the
 JAX package's ``scripts/repeat.py`` summary and is rewritten after every
 seed or batch, so ``--resume`` can skip the seeds already done; a resumed
@@ -54,9 +57,10 @@ SCENARIOS = {
                         _swung_up(cartpole_mujoco)),
     "ur5": (ur5, train_ur5, lambda s: ur5.UR5Config(seed=s), ur5.tracking_success),
 }
-FARMABLE = ("cartpole", "cartpole_multi_init")
-# the MuJoCo scenarios' plants run on the host, one seed at a time
-HOST_PLANTS = ("cartpole_mujoco", "ur5")
+# the farm is the default for the scenarios whose plant runs on the device;
+# cartpole_mujoco's host plant farms on request (--farm)
+FARMABLE = ("cartpole", "cartpole_multi_init", "cartpole_pms", "furuta")
+FARM_SUPPORTED = FARMABLE + ("cartpole_mujoco",)
 
 
 def _config(args, seed):
@@ -97,14 +101,6 @@ def run_sequential(args, seeds, results, costs):
 
 def run_farm(args, seeds, results, costs):
     """``--farm-batch`` seeds at a time as lanes of one ``SeedFarm``."""
-    if args.scenario in HOST_PLANTS:
-        raise SystemExit(
-            f"--farm does not take {args.scenario} yet: the farm has no host-plant collection "
-            "(the JAX package's SeedFarm._collect_host; ROADMAP Queue A.9); run it without --farm")
-    if args.scenario not in FARMABLE:
-        raise SystemExit(
-            f"--farm supports {', '.join(FARMABLE)}; the farm for {args.scenario} is not "
-            "ported yet (ROADMAP Queue A.5)")
     scen = SCENARIOS[args.scenario][0]
     for lo in range(0, len(seeds), args.farm_batch):
         batch = seeds[lo: lo + args.farm_batch]
@@ -186,8 +182,10 @@ def main(argv=None) -> int:
                         "--scenario-kw gp_epochs=500); values parse as Python literals, "
                         "else as strings")
     p.add_argument("--smoke", action="store_true")
-    p.add_argument("--farm", action="store_true",
-                   help="train the seeds as lanes of a SeedFarm (cartpole, cartpole_multi_init)")
+    p.add_argument("--farm", action=argparse.BooleanOptionalAction, default=None,
+                   help="train the seeds as lanes of a SeedFarm: the default for "
+                        f"{', '.join(FARMABLE)}; also takes cartpole_mujoco; --no-farm runs "
+                        "them one after another")
     p.add_argument("--farm-batch", type=int, default=4, help="seeds per farm batch")
     p.add_argument("--out-tag", type=str, default="",
                    help="suffix of the summary file name, so that A/B arms stay apart")
@@ -196,6 +194,11 @@ def main(argv=None) -> int:
                         "continues from its newest completed trial")
     p.add_argument("--device", type=str, default="cuda", help="cpu to run on the CPU")
     args = p.parse_args(argv)
+    if args.farm and args.scenario not in FARM_SUPPORTED:
+        raise SystemExit(f"--farm does not take {args.scenario} (nor does the JAX package's "
+                         f"repeat); it takes {', '.join(FARM_SUPPORTED)}")
+    if args.farm is None:
+        args.farm = args.scenario in FARMABLE
 
     if args.seeds:
         seeds = [int(s) for s in args.seeds.split(",")]

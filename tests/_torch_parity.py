@@ -155,8 +155,8 @@ def jax_rollout_noise(key, P, T, G, num_basis, p_dropout, init_dim=None, n_pos=N
 
 
 # dataclass fields only the JAX package has (its mesh, scan unroll, Pallas
-# switch, gram chunking and NaN-branch lowering)
-JAX_ONLY_FIELDS = {"scan_unroll", "mesh", "nan_branch_style", "gram_chunk", "use_pallas"}
+# switch and NaN-branch lowering)
+JAX_ONLY_FIELDS = {"scan_unroll", "mesh", "nan_branch_style", "use_pallas"}
 
 
 def assert_same_config(j, t, path="agent"):

@@ -113,20 +113,28 @@ class _HostPlant:
         raise AssertionError("the farm must refuse this plant before any rollout")
 
 
+class _NoRolloutPlant:
+    """A plant that offers no rollout() protocol."""
+
+
 @pytest.mark.parametrize("case", ["sor", "offline_filtering", "host_plant", "mesh"])
 def test_farm_rejects_what_it_does_not_cover(case):
+    """What the JAX package's farm refuses: SOR, a host plant with offline
+    filtering (``offline_filtering``), a plant without rollout()
+    (``host_plant``), a mesh."""
     if case == "offline_filtering":
         agent, _ = pms.build(pms.CartpolePMSConfig().smoke(), "cpu")
+        agent.plant = _HostPlant()
     else:
         agent, _ = scen.build(_cfg(), "cpu")
     kw = {}
     if case == "sor":
         agent.sor = object()
     elif case == "host_plant":
-        agent.plant = _HostPlant()
+        agent.plant = _NoRolloutPlant()
     elif case == "mesh":
         kw["mesh"] = object()
-    match = {"sor": "SOR", "offline_filtering": "offline", "host_plant": "ODE plants",
-             "mesh": "mesh"}[case]
+    match = {"sor": "SOR", "offline_filtering": "offline filtering for a host plant",
+             "host_plant": "rollout", "mesh": "mesh"}[case]
     with pytest.raises(ValueError, match=match):
         SeedFarm(agent, [1, 2], **kw)

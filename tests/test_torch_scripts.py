@@ -83,7 +83,7 @@ def _jax_summary_keys(tmp_path, monkeypatch):
 def test_repeat_two_seeds(farm, tmp_path, monkeypatch, capsys):
     monkeypatch.chdir(tmp_path)
     argv = ["--scenario", "cartpole", "--num-seeds", "2", "--smoke", "--device", "cpu",
-            "--out-tag", "t"] + TINY_KW + (["--farm"] if farm else [])
+            "--out-tag", "t"] + TINY_KW + (["--farm"] if farm else ["--no-farm"])
     assert repeat.main(argv) == 0
     with open(os.path.join("results_tmp", "torch", "repeat_cartpole_t.json")) as f:
         summary = json.load(f)
@@ -107,7 +107,28 @@ def test_repeat_two_seeds(farm, tmp_path, monkeypatch, capsys):
 
 
 def test_repeat_farm_refuses_unported_scenarios(tmp_path, monkeypatch):
+    """The farm takes every scenario the JAX package's repeat farms; ur5,
+    which neither package farms, is refused."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="Queue A.5"):
-        repeat.main(["--scenario", "cartpole_pms", "--num-seeds", "1", "--farm",
-                     "--device", "cpu"])
+    with pytest.raises(SystemExit, match="does not take ur5"):
+        repeat.main(["--scenario", "ur5", "--num-seeds", "1", "--farm", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("scenario", ["cartpole_pms", "furuta", "cartpole_mujoco"])
+def test_repeat_farm_takes(scenario, tmp_path, monkeypatch):
+    """The farm for every scenario the JAX package's repeat farms: the
+    default for the device plants, on request for the MuJoCo plant."""
+    if scenario == "cartpole_mujoco":
+        pytest.importorskip("mujoco")
+    monkeypatch.chdir(tmp_path)
+    trained = []
+    farm = repeat.SeedFarm
+    monkeypatch.setattr(repeat, "SeedFarm", lambda *a, **k: trained.append(1) or farm(*a, **k))
+    argv = ["--scenario", scenario, "--num-seeds", "2", "--smoke", "--device", "cpu",
+            "--out-tag", "t"] + TINY_KW + (["--farm"] if scenario == "cartpole_mujoco" else [])
+    assert repeat.main(argv) == 0 and trained == [1]
+    with open(os.path.join("results_tmp", "torch", f"repeat_{scenario}_t.json")) as f:
+        summary = json.load(f)
+    assert set(summary) == _jax_summary_keys(tmp_path, monkeypatch)
+    assert summary["seeds"] == [1, 2] and summary["complete"]
+    assert all(np.isfinite(summary["per_seed_cost"][s]) for s in ("1", "2"))

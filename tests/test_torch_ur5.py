@@ -408,7 +408,7 @@ def test_plateau_rescue_fires_on_a_forced_plateau(tmp_path, capsys):
 def test_repeat_farm_refuses_ur5_and_apply_policy_replays_a_ur5_checkpoint(tmp_path, capsys):
     from mcpilco_tpu_torch.scripts import apply_policy, repeat
 
-    with pytest.raises(SystemExit, match="_collect_host"):
+    with pytest.raises(SystemExit, match="does not take ur5"):
         repeat.main(["--scenario", "ur5", "--farm", "--num-seeds", "1", "--device", "cpu"])
     agent, _ = tur5.build(_cfg(tur5, log_dir=str(tmp_path)), "cpu")
     tr = tur5.recorded_trials()
