@@ -5,7 +5,12 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Phases (each prints one line with its time; any failure exits non-zero):
+Phases (each prints one line with its time; any failure exits non-zero).
+Every optimization runs as the port's users run it: on the card
+``PolicyOptimizer`` captures its iteration as a CUDA graph after one
+uncaptured iteration and replays it; phase 15 holds the graph against the
+uncaptured body (``graph=False``).
+
 
 1. build the fused GP-predict kernels K1/K2 from ``csrc/`` with nvcc;
 2. hold K1 (kalpha, quad and the kF it saves for K2) and K2 against
@@ -45,12 +50,12 @@ Phases (each prints one line with its time; any failure exits non-zero):
 9. the Furuta policy-optimization step: 2 exploration trials of the
    QUBE-like plant (N=300, M=320, exact GP), a 500-epoch fit of the
    semiparametric Sum(SE, Linear) model (the SE model below: 1501), its
-   posterior against float64 on the plain path, 2 optimizer steps at P=400
-   and horizon 150 timed as the host window of the step profile (host
-   ms/step, then device busy, device events per step and idle share over 2
-   profiled steps); then the
+   posterior against float64 on the plain path, 10 optimizer steps at P=400
+   and horizon 150 (its step profile is phase 15's); then the
    same on the same two trials with ``semiparametric=False`` (SE over 12
-   dims, K1/K2 in their wide path), the fitted posterior through K1
+   dims, K1/K2 in their wide path), 2 steps timed as the host window of the
+   step profile (host ms/step, then device busy, device events per step and
+   idle share over 2 profiled steps), the fitted posterior through K1
    against float64 and the learning-curve check;
 10. the Furuta main path: ``furuta.build`` then ``reinforce`` for 1 trial
     of 3 steps (300-epoch fit; no kernel structure: 0 launches), and the
@@ -63,7 +68,9 @@ Phases (each prints one line with its time; any failure exits non-zero):
 12. the user's entry points at full flagship width (5 steps per trial,
     300-epoch fits), checkpoints under ``results_tmp/``: (a) ``build`` +
     ``reinforce`` of 2 of the config's 3 trials, a run interrupted after
-    trial 1, with each stage checkpoint's size, save and load seconds, and
+    trial 1, with the reserved device memory after each trial (no growth:
+    each trial's graph and its memory pool are freed), each stage
+    checkpoint's size, save and load seconds, and
     the restored arrays bitwise equal to the run's and the rebuilt
     posterior's K1 predictions within FWD_TOL of the run's; (b) the resume
     through ``scripts.train_cartpole.run(cfg, auto_resume=True)``: 2 trials
@@ -77,9 +84,9 @@ Phases (each prints one line with its time; any failure exits non-zero):
     (400 basis functions, P=200, horizon 200, 6 heads, D=24, remat), the two
     trials in through ``add_external_trial``, a 1001-epoch fit (N=400,
     M=448); the default Sum(SE, MPK1) model on the plain predict: its
-    posterior against float64, 3 optimizer steps with the step profile, one
-    rollout + backward with remat on and off (gradients bitwise, peak
-    memory); then ``poly_degree=2`` on the same trials (K1/K2 in their wide
+    posterior against float64, one rollout + backward with remat on and off
+    (gradients bitwise, peak memory; its step profile is phase 15's); then
+    ``poly_degree=2`` on the same trials (K1/K2 in their wide
     path at D=24 G=6 P=200 M=448) with the cost curriculum (the plateau
     rescue's configuration: the fixed cost starts this seed on its
     saturated plateau): posterior through K1 against float64, the
@@ -102,7 +109,18 @@ Phases (each prints one line with its time; any failure exits non-zero):
     1e-6; (d) ``scripts.repeat --scenario cartpole_pms --farm`` over 2
     seeds; (e) the 4PMS farm's posteriors under the legacy variance
     operator: ``MultiGP.predict`` launches no kernel and agrees with the
-    factor form through K1 at FWD_TOL.
+    factor form through K1 at FWD_TOL;
+15. the graph: on five paths (the flagship of phase 3, 4PMS of phase 5, the
+    flagship farm at S=4 of phase 7, Furuta semiparametric of phase 9, UR5
+    with remat of phase 13, each fitted there, or here with 500 epochs when
+    its phase did not run), the optimizer step graphed against uncaptured:
+    host ms/step in turns, device busy, device events and host CUDA API
+    calls per step, idle share, capture + instantiate seconds, K1/K2 per
+    graphed step, and a learning curve graphed and twice uncaptured (10
+    steps; 3 for Furuta and UR5): events within 0.4%, costs and params
+    within the two uncaptured runs' spread or 1e-5 relative, K1/K2 counted
+    alike; then the flagship's reserved memory over three graphed calls (no
+    growth).  One JSON line ``{"graph": ...}`` holds the rows.
 
 Phase 2 also holds K1/K2 in their wide path (input dims above 8, walked in
 chunks of 8) against their plain versions at the Furuta shapes ('se', D=12,
@@ -120,7 +138,8 @@ against ``MultiGP._predict_plain``.
 
 There is no CPU path: without a CUDA device the script exits non-zero.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it lists the
-kernels with their launches (phases 4, 6, 7, 8, 10, 11, 12, 13 and 14),
+kernels with their launches (phases 4, 6, 7, 8, 10, 11, 12, 13 and 14; a
+graph's launches count once per replay),
 errors, device times at the flagship shapes and their bounds, and the same
 per wide shape and for the L=4 lane shapes of the 4PMS farm and the wide
 path (``by_shape``; the UR5 shape with its launches in phase 13 and its
@@ -129,7 +148,8 @@ optimizer step in phase 14).
 
     python3 chip_smoke.py --phases 2,9,10,14
 
-runs phase 1 and only the listed phases (the kernels line needs all).
+runs phase 1 and only the listed phases (the kernels line needs all;
+``--phases 15`` alone fits its five paths itself).
 
     python3 chip_smoke.py --kernel-ab PATH
 
@@ -148,7 +168,8 @@ busy, device events per step and idle share.
 
 profiles the single-seed flagship optimizer step of the package in the
 checkout at PATH (another commit unpacked with ``git archive``, to compare
-two commits in turns in one call) through its public entry points: 6
+two commits in turns in one call; PATH's package must have
+``utils/profiling.py``) through its public entry points: 6
 exploration trials, a 500-epoch fit, then host ms/step three times, device
 busy and device events per step, and the events per step of each kernel.
 """
@@ -247,36 +268,13 @@ def cuda_ms(fn, iters=100, warmup=10):
     return start.elapsed_time(end) / iters
 
 
-_RECORDS_CHECKED = []
-
-
-def device_records(prof):
-    """The device records (name, us) of a finished ``torch.profiler`` window,
-    read from its raw kineto results: ``prof.events()`` would first build
-    the host-side event tree, which takes seconds per 100K records (a
-    profiled 4PMS step has ~26K kernels).  The first window read is also
-    read through ``prof.events()`` and the two must hold the same records."""
-    from torch.autograd import DeviceType
-
-    out = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
-           if e.device_type() == DeviceType.CUDA
-           and not getattr(e, "is_hidden_event", lambda: False)()]
-    if not _RECORDS_CHECKED:
-        parsed = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-        if sorted(n for n, _ in parsed) != sorted(n for n, _ in out) or not math.isclose(
-                sum(t for _, t in parsed), sum(t for _, t in out), rel_tol=1e-6):
-            raise RuntimeError(f"raw kineto records ({len(out)}) differ from the parsed "
-                               f"events ({len(parsed)})")
-        _RECORDS_CHECKED.append(len(out))
-    return out
-
-
 def device_us(fn, iters=20, warmup=3):
     """Device time per call of ``fn`` in microseconds, by kernel name, from
     torch.profiler's kernel records over ``iters`` calls: the host's launch
     gaps are not in it."""
     from torch.profiler import ProfilerActivity, profile
+
+    from mcpilco_tpu_torch.utils.profiling import device_records
 
     for _ in range(warmup):
         fn()
@@ -701,11 +699,13 @@ def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, tri
     ``trials`` of another agent on the same plant), fit the GP for
     ``epochs`` epochs, hold K1 (where the kernel structure has one) and the
     plain path on the fitted posterior against float64, then time 10
-    optimizer steps at full width after 2 warm-up steps, or with
+    optimizer steps at full width, graphed, as (run(GRAPH_BASE + 10) -
+    run(GRAPH_BASE)) / 10 (the call's warm-up and capture left out), or with
     ``profile`` 2 as the host window of the step profile; with kernels the
-    learning-curve check."""
+    learning-curve check.  Returns the agent."""
     from mcpilco_tpu_torch.control.mc_pilco import ModelFitOptions
     from mcpilco_tpu_torch.utils import prng
+    from mcpilco_tpu_torch.utils.profiling import GRAPH_BASE, host_ms, profile_steps
 
     t_plant = time.perf_counter()
     for i in range(num_trials):
@@ -738,15 +738,14 @@ def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, tri
 
     timed = 2 if profile else 10
     if profile:
-        # the timed steps are the profile's host window: (run(3) - run(1)) / 2;
-        # busy over 2 - 1 profiled steps (~47K events each at horizon 150)
+        # the timed steps are the profile's host window: (run(base + 2) -
+        # run(base)) / 2, base = GRAPH_BASE steps (the call that captures);
+        # busy over 2 profiled steps (~47K events each at horizon 150)
         p = profile_steps(run, host_steps=timed, window=2)
-        res, ms_step, steps = runs[timed + 1], p["host_ms"], timed + 1
+        res, ms_step, steps = runs[GRAPH_BASE + timed], p["host_ms"], GRAPH_BASE + timed
     else:
-        run(2)
-        t_opt = time.perf_counter()
-        run(timed)
-        res, ms_step, steps = runs[timed], 1e3 * (time.perf_counter() - t_opt) / timed, timed
+        ms_step = host_ms(run, timed)[0]
+        res, steps = runs[GRAPH_BASE + timed], GRAPH_BASE + timed
     costs = res.cost_history[: res.steps_done].numpy()
     if res.steps_done != steps or not np.all(np.isfinite(costs)):
         raise RuntimeError(f"policy step: {res.steps_done} steps, costs {costs}")
@@ -754,7 +753,7 @@ def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, tri
     if (min(fp.launches.values()) > 0) != kernels or (max(fp.launches.values()) > 0) != kernels:
         raise RuntimeError(f"the policy step's launches {fp.launches} do not match its kernel "
                            f"structure {agent.gp._fused_structure()}")
-    print(f"  {timed} steps at P={opt.num_particles}, horizon {opt.horizon}: "
+    print(f"  {timed} steps at P={opt.num_particles}, horizon {opt.horizon} (graphed): "
           f"{ms_step:.2f} ms/step, cost {costs[0]:.3f} -> {costs[-1]:.3f} over {steps} steps, "
           f"launches {dict(fp.launches)}", flush=True)
     if profile:
@@ -764,6 +763,7 @@ def policy_step(agent, num_trials, T, fp, dev, expect_m=None, profile=False, tri
               f"share {p['idle']:.3f}; most events per step: {top}", flush=True)
     if kernels:
         learning_curve(agent, fp)
+    return agent
 
 
 def learning_curve(agent, fp, steps=10):
@@ -834,44 +834,6 @@ def main_path(built, fp):
     return launches
 
 
-def profile_steps(run, host_repeats=1, host_steps=10, window=5):
-    """``run(n)`` runs an optimization of n steps (after its probe rollout)
-    and waits for the card.  Host ms/step from (run(host_steps + 1) -
-    run(1)) / host_steps, unprofiled, averaged over ``host_repeats`` (each
-    in ``host_runs``);
-    device busy ms and device events per step, in all and per kernel name,
-    from torch.profiler's records over run(window) minus run(1); idle share
-    1 - busy / host."""
-    from collections import Counter
-
-    from torch.profiler import ProfilerActivity, profile
-
-    run(1)
-    host_runs = []
-    for _ in range(host_repeats):
-        t0 = time.perf_counter()
-        run(1)
-        t1 = time.perf_counter()
-        run(host_steps + 1)
-        host_runs.append(1e3 * (time.perf_counter() - t1 - (t1 - t0)) / host_steps)
-    host = sum(host_runs) / host_repeats
-
-    def profiled(n):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run(n)
-        events = device_records(prof)
-        return sum(us for _, us in events), Counter(name for name, _ in events)
-
-    (us1, c1), (usn, cn) = profiled(1), profiled(window)
-    busy = 1e-3 * (usn - us1) / (window - 1)
-    if busy <= 0:
-        raise RuntimeError("torch.profiler recorded no device time for the optimizer steps")
-    by_kernel = {k: (cn[k] - c1[k]) / (window - 1) for k in cn | c1 if cn[k] != c1[k]}
-    return dict(host_ms=host, host_runs=host_runs, busy_ms=busy,
-                events=(cn.total() - c1.total()) / (window - 1), idle=1.0 - busy / host,
-                events_by_kernel=dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])))
-
-
 def lane_runner(agent, keys, params, gp_params, post, trial_index):
     def run(n):
         agent.optimizer.optimize_lanes(keys, params, gp_params, post, n, 0.01, 0.25, trial_index)
@@ -935,6 +897,7 @@ def farm_step_profile(agent, farm, host_steps, window, lane_one=False):
     4PMS step, so the check fails above +0.7%.  Returns the profiles."""
     from mcpilco_tpu_torch.models.gp import tree_map
     from mcpilco_tpu_torch.utils import prng
+    from mcpilco_tpu_torch.utils.profiling import profile_steps
 
     S = len(farm.seeds)
     keys = [prng.fold(prng.stream(k, prng.STREAM_ROLLOUT), 1) for k in farm.keys]
@@ -1000,6 +963,7 @@ def farm_phase(fp, dev):
     # the fits sum in another order when batched; 10 BPTT steps stay close
     # (5.77e-05 on the H100, while two seeds' costs differ by ~4e-3)
     farmed_against_alone(cartpole, cfg, farm, res, dev, 10, 1e-3)
+    GRAPH_PATHS["farm"] = farm_path(agent, farm)
     return launches
 
 
@@ -1337,8 +1301,15 @@ def entry_points_phase(fp, dev):
 
     agent.save_checkpoint = timed_save
     fp.reset_launches()
-    agent.reinforce(**{**kwargs, "num_trials": 2})
+    reserved = []
+    agent.reinforce(**{**kwargs, "num_trials": 2},
+                    on_trial_end=lambda a, t: reserved.append(torch.cuda.memory_reserved(dev)))
     count("a")
+    # each trial's graphed optimize frees its graph and memory pool; a pool
+    # left behind would add the flagship step's activations (~0.1-1 GB)
+    print(f"  reserved memory after each trial: {reserved} bytes", flush=True)
+    if reserved[-1] > reserved[0] + 32 * 2**20:
+        raise RuntimeError(f"reserved memory grew from trial to trial: {reserved}")
     stages = [f"{s}_trial{i}" for i in (0, 1) for s in ("model", "policy", "complete")]
     if sorted(saves) != sorted(stages) or not all(
             os.path.isdir(os.path.join(log_dir, s)) for s in stages):
@@ -1452,6 +1423,7 @@ def ur5_step_profile(agent, fp, label):
     profile; the costs finite, the kernels launched where the structure has
     them."""
     from mcpilco_tpu_torch.utils import prng
+    from mcpilco_tpu_torch.utils.profiling import GRAPH_BASE, profile_steps
 
     runs = {}
 
@@ -1462,9 +1434,9 @@ def ur5_step_profile(agent, fp, label):
 
     fp.reset_launches()
     p = profile_steps(run, host_steps=UR5_STEPS, window=2)
-    res = runs[UR5_STEPS + 1]
+    res = runs[GRAPH_BASE + UR5_STEPS]
     costs = res.cost_history[: res.steps_done].numpy()
-    if res.steps_done != UR5_STEPS + 1 or not np.all(np.isfinite(costs)):
+    if res.steps_done != GRAPH_BASE + UR5_STEPS or not np.all(np.isfinite(costs)):
         raise RuntimeError(f"UR5 {label}: {res.steps_done} steps, costs {costs}")
     kernels = agent.gp._fused_structure() is not None
     if (min(fp.launches.values()) > 0) != kernels or (max(fp.launches.values()) > 0) != kernels:
@@ -1564,10 +1536,10 @@ def ur5_phase(fp, dev):
     agent = ur5_fitted(cfg, trials, fp, dev)
     if agent.gp._fused_structure() is not None:
         raise RuntimeError("UR5's default Sum(SE, MPK1) should have no fused structure")
-    ur5_step_profile(agent, fp, "Sum(SE, MPK1), plain predict")
     ur5_remat_check(agent, dev)
+    # its step profile, graphed and uncaptured, is phase 15's
+    GRAPH_PATHS["ur5"] = agent_path(agent)
     del agent
-    torch.cuda.empty_cache()
 
     # the fixed cost leaves this seed's init on the saturated plateau (the
     # default model's cost above goes to 199 of a possible 199, where the
@@ -1629,6 +1601,206 @@ def ur5_phase(fp, dev):
     return launches, times
 
 
+# The fitted optimizer paths of phases 3, 5, 7, 9 and 13 by name, which
+# phase 15 holds graphed against uncaptured (it fits its own where a phase
+# did not run): each ``step(n, graph, salt)`` runs n optimizer steps from the
+# key folded with ``salt`` and returns (costs, final policy params).
+GRAPH_PATHS = {}
+# phase 15's depth per path: host steps per window, profiled steps, learning
+# curve steps; a Furuta step takes ~1 s and a UR5 step ~2 s on the host
+# uncaptured, and their uncaptured windows hold ~45K and ~67K kernel
+# records per step, as many runtime records again, and a probe rollout
+GRAPH_DEPTH = {"flagship": (3, 2, 10), "4pms": (3, 2, 10), "farm": (3, 2, 10),
+               "furuta": (2, 1, 3), "ur5": (2, 1, 3)}
+# phase 15's five paths and what each is
+GRAPH_LABELS = {"flagship": "flagship, P=400 (phase 3)", "4pms": "4PMS, M=448 (phase 5)",
+                "farm": f"flagship farm, S={FARM_SEEDS} (phase 7)",
+                "furuta": "Furuta semiparametric, plain predict (phase 9)",
+                "ur5": "UR5 Sum(SE, MPK1), remat (phase 13)"}
+
+
+def agent_path(agent):
+    """One agent's optimizer as a phase-15 path."""
+    from mcpilco_tpu_torch.utils import prng
+
+    def step(n, graph, salt=1):
+        res = agent.optimizer.optimize(prng.fold(prng.root_key(7), salt), agent.policy_params,
+                                       agent.gp_params, agent.posterior, n, 0.01, 0.25,
+                                       graph=graph)
+        torch.cuda.synchronize()
+        return res.cost_history[: res.steps_done].numpy(), res.policy_params
+    return step
+
+
+def farm_path(agent, farm):
+    """A farm's lane-batched optimizer over its last posteriors as a
+    phase-15 path; costs [S, n], params with the lane axis."""
+    from mcpilco_tpu_torch.utils import prng
+
+    def step(n, graph, salt=1):
+        keys = [prng.fold(prng.stream(k, prng.STREAM_ROLLOUT), salt) for k in farm.keys]
+        results, _ = agent.optimizer.optimize_lanes(keys, farm.policy_params, farm.gp_params,
+                                                    farm.posterior, n, 0.01, 0.25, 1,
+                                                    graph=graph)
+        torch.cuda.synchronize()
+        return (np.stack([r.cost_history[: r.steps_done].numpy() for r in results]),
+                {k: torch.stack([r.policy_params[k] for r in results])
+                 for k in results[0].policy_params})
+    return step
+
+
+def fit_graph_path(name, fp, dev):
+    """A phase-15 path whose phase did not run: the phase's build and data,
+    a shorter fit."""
+    from mcpilco_tpu_torch.control.mc_pilco import ModelFitOptions
+    from mcpilco_tpu_torch.scenarios import cartpole, cartpole_pms, furuta, ur5
+
+    if name == "farm":
+        # opt_steps caps every run of the farm's optimizer: phase 7's 10
+        cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500)
+        agent, farm, _, _ = run_farm(fp, dev, cartpole, cfg, range(1, FARM_SEEDS + 1),
+                                     kernels=True)
+        return farm_path(agent, farm)
+    if name == "ur5":
+        return agent_path(ur5_fitted(ur5.UR5Config(seed=1, gp_epochs=500), ur5.recorded_trials(),
+                                     fp, dev))
+    scen, cfg, trials = {"flagship": (cartpole, cartpole.CartpoleConfig(seed=1), 6),
+                         "4pms": (cartpole_pms, cartpole_pms.CartpolePMSConfig(seed=1), 5),
+                         "furuta": (furuta, furuta.FurutaConfig(seed=1), 2)}[name]
+    agent = scen.build(cfg, dev)[0]
+    for i in range(trials):
+        agent.collect(cfg.T_exploration, trial_index=i, exploration=True)
+    agent.fit_model(ModelFitOptions(num_epochs=500))
+    return agent_path(agent)
+
+
+def graph_ab(name, step, fp, host_steps, window, curve_steps):
+    """One path's step captured as a CUDA graph against the same body
+    uncaptured (``graph=False``): host ms/step in turns (graph, uncaptured,
+    uncaptured, graph), device
+    busy, device events and host CUDA API calls per step, idle share, the
+    capture's seconds, K1/K2 per step, and a ``curve_steps`` learning curve
+    from one key graphed and twice uncaptured.  Fails unless the device
+    events per step agree within 0.4% (the profiler's spread between windows
+    of the same code; on a disagreement both are profiled once more, since
+    a window of ~10^5 records can come back short) and the graphed costs
+    and final params are within the spread of the two uncaptured runs or
+    1e-5 relative.  Returns the row."""
+    from mcpilco_tpu_torch.control import trainer
+    from mcpilco_tpu_torch.utils.profiling import GRAPH_BASE, host_ms, profile_steps
+
+    runner = lambda graph: lambda n: step(n, graph)
+    base = {True: GRAPH_BASE, False: 1}
+    prof, host = {}, {True: [], False: []}
+    for turn in range(2):
+        for graph in ((True, False) if turn % 2 == 0 else (False, True)):
+            if graph in prof:
+                host[graph] += host_ms(runner(graph), host_steps, base[graph])
+            else:
+                prof[graph] = profile_steps(runner(graph), host_steps=host_steps,
+                                            window=window, base=base[graph])
+                host[graph].append(prof[graph]["host_ms"])
+    g, e = prof[True], prof[False]
+    if abs(g["events"] - e["events"]) > 0.004 * e["events"]:
+        print(f"  graph {name}: device events per step {g['events']:.1f} graphed against "
+              f"{e['events']:.1f} uncaptured; profiling both again", flush=True)
+        g, e = (profile_steps(runner(graph), host_steps=host_steps, window=window,
+                              base=base[graph]) for graph in (True, False))
+        host[True].append(g["host_ms"])
+        host[False].append(e["host_ms"])
+    kernel_steps = {k: sum(v for n, v in g["events_by_kernel"].items() if k in n)
+                    for k in ("k1_forward", "k2_backward_xstar")}
+    # device us per K1/K2 launch, graphed / uncaptured
+    kernel_us = {k: tuple(sum(t for n, t in p["us_by_kernel"].items() if k in n)
+                          / max(kernel_steps[k], 1) for p in (g, e)) for k in kernel_steps}
+
+    curves, launched = {}, {}
+    for label, graph in (("graph", True), ("uncaptured", False), ("uncaptured again", False)):
+        fp.reset_launches()
+        trainer.reset_graph_counts()
+        curves[label] = step(curve_steps, graph, 2)
+        launched[label] = dict(fp.launches)
+        if graph:
+            counts = dict(trainer.graph_counts)
+    if counts["captures"] != 1 or counts["replays"] < curve_steps - GRAPH_BASE:
+        raise RuntimeError(f"{name}: the graphed curve did not replay one graph: {counts}")
+    rel = lambda a, b: float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+    prel = lambda a, b: max(max_err(a[k], b[k]) / max(float(b[k].abs().max()), 1e-30)
+                            for k in b)
+    (cg, pg), (ce, pe), (ce2, pe2) = curves.values()
+    gap, spread = (rel(cg, ce), prel(pg, pe)), (rel(ce2, ce), prel(pe2, pe))
+    bitwise = np.array_equal(cg, ce) and all(torch.equal(pg[k], pe[k]) for k in pe)
+    row = dict(host_graph=host[True], host_uncaptured=host[False], busy_graph=g["busy_ms"],
+               busy_uncaptured=e["busy_ms"], events_graph=g["events"],
+               events_uncaptured=e["events"], api_graph=g["api_calls"],
+               api_uncaptured=e["api_calls"], idle_graph=g["idle"], idle_uncaptured=e["idle"],
+               capture_s=counts["captures_s"],
+               k1_per_step=kernel_steps["k1_forward"],
+               k2_per_step=kernel_steps["k2_backward_xstar"],
+               k1_us=kernel_us["k1_forward"], k2_us=kernel_us["k2_backward_xstar"],
+               curve_gap=gap, curve_spread=spread, bitwise=bitwise,
+               launches_graph=launched["graph"], launches_uncaptured=launched["uncaptured"])
+    api = lambda p: ", ".join(f"{k} {v:.0f}" for k, v in list(p["api_by_name"].items())[:3])
+    print(f"  graph {name}: host ms/step graphed {' / '.join(f'{v:.2f}' for v in host[True])}, "
+          f"uncaptured {' / '.join(f'{v:.2f}' for v in host[False])}; device busy "
+          f"{g['busy_ms']:.2f} / {e['busy_ms']:.2f} ms/step; device events per step "
+          f"{g['events']:.1f} / {e['events']:.1f}; host CUDA API calls per step "
+          f"{g['api_calls']:.1f} ({api(g)}) / {e['api_calls']:.1f} ({api(e)}); idle share "
+          f"{g['idle']:.3f} / {e['idle']:.3f}; capture + instantiate "
+          f"{row['capture_s']:.3f} s; K1/K2 per graphed step "
+          f"{kernel_steps['k1_forward']:.1f} / {kernel_steps['k2_backward_xstar']:.1f}, device us "
+          f"per launch graphed / uncaptured: K1 {kernel_us['k1_forward'][0]:.2f} / "
+          f"{kernel_us['k1_forward'][1]:.2f}, K2 {kernel_us['k2_backward_xstar'][0]:.2f} / "
+          f"{kernel_us['k2_backward_xstar'][1]:.2f}", flush=True)
+    print(f"  graph {name}: {curve_steps}-step curve graphed "
+          f"{' '.join(f'{v:.4f}' for v in np.ravel(cg)[:curve_steps])}; against uncaptured: "
+          f"costs {gap[0]:.3e}, params {gap[1]:.3e} relative (two uncaptured runs: "
+          f"{spread[0]:.3e}, {spread[1]:.3e}); {'bitwise equal' if bitwise else 'not bitwise'}; "
+          f"launches {launched['graph']} graphed, {launched['uncaptured']} uncaptured",
+          flush=True)
+    if abs(g["events"] - e["events"]) > 0.004 * e["events"]:
+        diff = {k: g["events_by_kernel"].get(k, 0.0) - e["events_by_kernel"].get(k, 0.0)
+                for k in g["events_by_kernel"].keys() | e["events_by_kernel"].keys()}
+        top = sorted(((k, v) for k, v in diff.items() if v), key=lambda kv: -abs(kv[1]))[:6]
+        raise RuntimeError(f"{name}: the graphed step ran {g['events']} device events per step "
+                           f"against {e['events']} uncaptured; by kernel {top}")
+    if gap[0] > max(spread[0], 1e-5) or gap[1] > max(spread[1], 1e-5):
+        raise RuntimeError(f"{name}: the graphed curve left the uncaptured one: gap {gap}, "
+                           f"spread {spread}")
+    if launched["graph"] != launched["uncaptured"]:
+        raise RuntimeError(f"{name}: K1/K2 counted {launched['graph']} graphed against "
+                           f"{launched['uncaptured']} uncaptured")
+    return row
+
+
+def graph_phase(fp, dev):
+    """Phase 15: every path of ``GRAPH_LABELS`` graphed against uncaptured
+    (``graph_ab``), then the flagship's reserved memory over three graphed
+    calls (each frees its graph and pool: no growth).  Prints the rows as
+    one JSON line; returns them."""
+    from mcpilco_tpu_torch.utils.profiling import GRAPH_BASE
+
+    rows = {}
+    for name in GRAPH_LABELS:
+        t0 = time.perf_counter()
+        if name not in GRAPH_PATHS:
+            GRAPH_PATHS[name] = fit_graph_path(name, fp, dev)
+        print(f"  ({GRAPH_LABELS[name]}):", flush=True)
+        rows[name] = graph_ab(name, GRAPH_PATHS[name], fp, *GRAPH_DEPTH[name])
+        print(f"  ({name}) done in {time.perf_counter() - t0:.1f} s", flush=True)
+    reserved = []
+    for _ in range(3):
+        GRAPH_PATHS["flagship"](GRAPH_BASE + 2, True)
+        reserved.append(torch.cuda.memory_reserved(dev))
+    print(f"  flagship, three graphed calls: reserved memory after each {reserved} bytes",
+          flush=True)
+    if reserved[-1] > reserved[0]:
+        raise RuntimeError(f"reserved memory grew over graphed calls: {reserved}")
+    GRAPH_PATHS.clear()
+    print(json.dumps({"graph": rows}), flush=True)
+    return rows
+
+
 def kernel_ab(fp, dev, root):
     """K1/K2 of the checkout at ``root`` against this checkout's, built with
     the same flags and timed in turns (root / this / this / root) at the
@@ -1659,6 +1831,7 @@ def farm_sweep(fp, dev, sizes):
     from mcpilco_tpu_torch.parallel.multiseed import SeedFarm
     from mcpilco_tpu_torch.scenarios import cartpole
     from mcpilco_tpu_torch.utils import prng
+    from mcpilco_tpu_torch.utils.profiling import profile_steps
 
     rows = []
     for S in sizes:
@@ -1696,6 +1869,7 @@ def step_profile(root):
     from mcpilco_tpu_torch.control.mc_pilco import ModelFitOptions
     from mcpilco_tpu_torch.scenarios import cartpole
     from mcpilco_tpu_torch.utils import prng
+    from mcpilco_tpu_torch.utils.profiling import profile_steps
 
     dev = torch.device("cuda", 0)
     agent, _ = cartpole.build(cartpole.CartpoleConfig(seed=1), dev)
@@ -1721,7 +1895,7 @@ def main():
     parser.add_argument("--kernel-ab", default=None, metavar="PATH",
                         help="time K1/K2 of the checkout at PATH against this one's instead")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases 2-14 to run after the build (default all)")
+                        help="comma-separated phases 2-15 to run after the build (default all)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's chip check has no CPU path",
@@ -1764,7 +1938,7 @@ def main():
         print(json.dumps({"ok": True, "device": device}))
         return 0
 
-    wanted = set(range(2, 15)) if args.phases is None else {int(v) for v in args.phases.split(",")}
+    wanted = set(range(2, 16)) if args.phases is None else {int(v) for v in args.phases.split(",")}
     paths, rec = [], None
     if 2 in wanted:
         t0 = time.perf_counter()
@@ -1775,7 +1949,8 @@ def main():
     if 3 in wanted:
         t0 = time.perf_counter()
         cfg = cartpole.CartpoleConfig(seed=1)
-        policy_step(cartpole.build(cfg, dev)[0], 6, cfg.T_exploration, fp, dev)
+        GRAPH_PATHS["flagship"] = agent_path(
+            policy_step(cartpole.build(cfg, dev)[0], 6, cfg.T_exploration, fp, dev))
         phase("3 flagship policy-optimization step", t0)
 
     if 4 in wanted:
@@ -1789,8 +1964,9 @@ def main():
     if 5 in wanted:
         t0 = time.perf_counter()
         cfg = cartpole_pms.CartpolePMSConfig(seed=1)
-        policy_step(cartpole_pms.build(cfg, dev)[0], 5, cfg.T_exploration, fp, dev,
-                    expect_m=M_PMS)
+        GRAPH_PATHS["4pms"] = agent_path(
+            policy_step(cartpole_pms.build(cfg, dev)[0], 5, cfg.T_exploration, fp, dev,
+                        expect_m=M_PMS))
         phase("5 4PMS policy-optimization step", t0)
 
     if 6 in wanted:
@@ -1814,7 +1990,9 @@ def main():
         cfg = furuta.FurutaConfig(seed=1)
         print("  Furuta, semiparametric Sum(SE, Linear):", flush=True)
         semi = furuta.build(cfg, dev)[0]
-        policy_step(semi, 2, cfg.T_exploration, fp, dev, expect_m=320, profile=True, epochs=500)
+        # its step profile, graphed and uncaptured, is phase 15's
+        policy_step(semi, 2, cfg.T_exploration, fp, dev, expect_m=320, epochs=500)
+        GRAPH_PATHS["furuta"] = agent_path(semi)
         print("  Furuta, SE over 12 dims, on the same two trials:", flush=True)
         # the full fit under the learning curve: a 500-epoch model spread
         # kernel and plain curves 2.4% apart (0.27% at 1501 epochs)
@@ -1865,8 +2043,13 @@ def main():
                 row.update(launches=pms["launches"][key], optimizer_steps=pms["optimizer_steps"])
         phase("14 the farm over 4PMS, Furuta, a host plant; repeat --farm; legacy variance", t0)
 
+    if 15 in wanted:
+        t0 = time.perf_counter()
+        graph_phase(fp, dev)
+        phase("15 graph: the optimizer step graphed against uncaptured on five paths", t0)
+
     print(smi, flush=True)  # again beside the results, for logs that keep only the end
-    if rec is None or wanted != set(range(2, 15)):
+    if rec is None or wanted != set(range(2, 16)):
         print(json.dumps({"ok": True, "device": device}))
         return 0
     src = "mcpilco_tpu_torch/csrc/fused_predict.cu"

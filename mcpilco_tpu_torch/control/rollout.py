@@ -30,6 +30,7 @@ exactly what a rollout of that lane alone would draw.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -40,7 +41,7 @@ from ..models import filters
 from ..models.dynamics import DynamicsModel
 from ..models.gp import MultiGP, Posterior
 from ..models.policies import PolicyBase
-from ..utils import prng
+from ..utils import consts, prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,31 +69,39 @@ class InitialStateDistribution:
                 else tuple(float(x) for x in v.reshape(-1)),
             )
 
+    def draw(self, key, num_particles: int, device, dtype=torch.float32):
+        """The random numbers of one :meth:`sample` from ``key``: (eps
+        [num_particles, ds], the base draw: uniform on [0, 1) for 'uniform',
+        standard normal otherwise; idx [num_particles], the component draw of
+        'multi_gauss', else None)."""
+        gen = prng.generator(key, device)
+        idx = None
+        if self.kind == "multi_gauss":
+            idx = torch.randint(0, len(self.mean), (num_particles,), generator=gen, device=device)
+        if self.kind == "uniform":
+            return torch.rand((num_particles, len(self.low)), generator=gen, dtype=dtype,
+                              device=device), None
+        return torch.randn((num_particles, np.shape(self.mean)[-1]), generator=gen, dtype=dtype,
+                           device=device), idx
+
     def sample(self, key, num_particles: int, device, dtype=torch.float32,
                eps: Optional[torch.Tensor] = None,
                idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[num_particles, ds] draws.  ``eps`` [num_particles, ds] replaces the
-        base draw (uniform on [0, 1) for 'uniform', standard normal
-        otherwise); ``idx`` [num_particles] replaces the component draw of
-        'multi_gauss'."""
-        gen = None
+        base draw of :meth:`draw`; ``idx`` [num_particles] replaces the
+        component draw of 'multi_gauss'.  Lanes: ``eps`` [L, P, ds] and
+        ``idx`` [L, P] give [L, P, ds]."""
         if eps is None or (self.kind == "multi_gauss" and idx is None):
-            gen = prng.generator(key, device)
-        opts = dict(dtype=dtype, device=device)
+            drawn = self.draw(key, num_particles, device, dtype)
+            eps = drawn[0] if eps is None else eps
+            idx = drawn[1] if idx is None else idx
         if self.kind == "uniform":
-            lo, hi = (torch.as_tensor(v, **opts) for v in (self.low, self.high))
-            if eps is None:
-                eps = torch.rand((num_particles, lo.shape[0]), generator=gen, **opts)
+            lo, hi = (consts.tensor(v, dtype, device) for v in (self.low, self.high))
             return lo + (hi - lo) * eps
-        mean = torch.as_tensor(self.mean, **opts)
-        std = torch.sqrt(torch.as_tensor(self.var, **opts))
+        mean = consts.tensor(self.mean, dtype, device)
+        std = torch.sqrt(consts.tensor(self.var, dtype, device))
         if self.kind == "multi_gauss":
-            if idx is None:
-                idx = torch.randint(0, mean.shape[0], (num_particles,), generator=gen,
-                                    device=device)
             mean, std = mean[idx], std[idx]
-        if eps is None:
-            eps = torch.randn((num_particles, mean.shape[-1]), generator=gen, **opts)
         return mean + std * eps
 
     def sample_single(self, key, device="cpu", dtype=torch.float32) -> torch.Tensor:
@@ -123,9 +132,14 @@ class PMSSensors:
     def coeffs(self, dtype=torch.float32):
         """butter(1, fc) as Python floats rounded to ``dtype``, the precision
         the rollout computes in."""
-        b, a = filters.butter1(self.fc)
-        return (tuple(torch.as_tensor(b, dtype=dtype).tolist()),
-                tuple(torch.as_tensor(a, dtype=dtype).tolist()))
+        return _butter1_rounded(self.fc, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _butter1_rounded(fc, dtype):
+    b, a = filters.butter1(fc)
+    return (tuple(torch.as_tensor(b, dtype=dtype).tolist()),
+            tuple(torch.as_tensor(a, dtype=dtype).tolist()))
 
 
 class RolloutResult(NamedTuple):
@@ -138,17 +152,22 @@ class RolloutNoise(NamedTuple):
 
     state: [T-1, P, G] standard normals of the next-state draws;
     keep:  [T, P, num_basis] dropout keep-masks of the policy, or None;
-    init:  [P, ds] standard normals of the initial particles, or None
-           (read by the policy optimizer, not by ``simulate``);
+    init:  [P, ds] base draws of the initial particles
+           (:meth:`InitialStateDistribution.draw`), or None (read by the
+           policy optimizer, not by ``simulate``);
     meas:  [T-1, P, n_pos] standard normals of the simulated position
-           measurements (rollouts with sensors only), or None.
-    Lanes sit behind the time axis: state [T-1, L, P, G], init [L, P, ds].
+           measurements (rollouts with sensors only), or None;
+    init_idx: [P] component draws of a 'multi_gauss' initial distribution,
+           or None.
+    Lanes sit behind the time axis: state [T-1, L, P, G], init [L, P, ds],
+    init_idx [L, P].
     """
 
     state: torch.Tensor
     keep: Optional[torch.Tensor] = None
     init: Optional[torch.Tensor] = None
     meas: Optional[torch.Tensor] = None
+    init_idx: Optional[torch.Tensor] = None
 
 
 def stack_lanes(noises) -> RolloutNoise:
@@ -161,12 +180,14 @@ def stack_lanes(noises) -> RolloutNoise:
     stack = lambda ts, dim: None if ts[0] is None else torch.stack(ts, dim=dim)
     return RolloutNoise(state=stack([n.state for n in noises], 1), keep=stack(keeps, 1),
                         init=stack([n.init for n in noises], 0),
-                        meas=stack([n.meas for n in noises], 1))
+                        meas=stack([n.meas for n in noises], 1),
+                        init_idx=stack([n.init_idx for n in noises], 0))
 
 
 def _policy_rate(p_dropout, device):
-    """The policy's dropout argument: one rate, or a tensor [L] when the
-    lanes' rates (a sequence) differ."""
+    """The policy's dropout argument: one rate, a tensor [L] of one rate
+    per lane as given (the policy optimizer's buffer), or a tensor [L] made
+    from a sequence of lane rates that differ."""
     if not isinstance(p_dropout, (list, tuple)):
         return p_dropout
     if len(set(p_dropout)) == 1:
@@ -236,14 +257,16 @@ class RolloutEngine:
         return torch.clamp(mean, -lim, lim), torch.minimum(var, lim * lim)
 
     def draw_noise(self, key, num_particles: int, horizon: int, p_dropout, device,
-                   dtype=torch.float32) -> RolloutNoise:
-        """All random numbers of one rollout, one draw per stream.  A list of
-        lane keys (and ``p_dropout`` one rate per lane, or one for all) draws
-        every lane from its own generators and stacks the lanes."""
+                   dtype=torch.float32, init_dist=None) -> RolloutNoise:
+        """All random numbers of one rollout, one draw per stream, and with
+        ``init_dist`` (an :class:`InitialStateDistribution`) those of its
+        initial particles (``init``, ``init_idx``).  A list of lane keys (and
+        ``p_dropout`` one rate per lane, or one for all) draws every lane from
+        its own generators and stacks the lanes."""
         if isinstance(key, list):
             rates = p_dropout if isinstance(p_dropout, (list, tuple)) else [p_dropout] * len(key)
-            return stack_lanes([self.draw_noise(k, num_particles, horizon, p, device, dtype)
-                                for k, p in zip(key, rates)])
+            return stack_lanes([self.draw_noise(k, num_particles, horizon, p, device, dtype,
+                                                init_dist) for k, p in zip(key, rates)])
 
         def normals(tag, width):
             return torch.randn((horizon - 1, num_particles, width), dtype=dtype, device=device,
@@ -258,8 +281,12 @@ class RolloutEngine:
         meas = None
         if self.sensors is not None:
             meas = normals(prng.STREAM_MEAS_NOISE, len(self.sensors.pos_indices))
+        init = idx = None
+        if init_dist is not None:
+            init, idx = init_dist.draw(prng.stream(key, prng.STREAM_INIT_PARTICLES), num_particles,
+                                       device, dtype)
         return RolloutNoise(state=normals(prng.STREAM_ROLLOUT, self.gp.num_heads), keep=keep,
-                            meas=meas)
+                            meas=meas, init=init, init_idx=idx)
 
     def simulate(self, key, policy_params, gp_params, posterior: Posterior, s0: torch.Tensor,
                  horizon: int, p_dropout=0.0, particle_pred: bool = True,
@@ -318,8 +345,8 @@ class RolloutEngine:
         next filter step takes as x_{t-1}."""
         sens = self.sensors
         b, a = sens.coeffs(s0.dtype)
-        pos, vel = list(sens.pos_indices), list(sens.vel_indices)
-        std_pos = torch.as_tensor(sens.std_pos_noise, dtype=s0.dtype, device=s0.device)
+        pos, vel = (consts.index(i, s0.device) for i in (sens.pos_indices, sens.vel_indices))
+        std_pos = consts.tensor(sens.std_pos_noise, s0.dtype, s0.device)
 
         def step(t, s, u, noisy_prev, meas_vel_prev, policy_params, gp_params, posterior):
             if self.bptt_clip is not None:
@@ -332,7 +359,7 @@ class RolloutEngine:
             )
             meas, noisy_prev, meas_vel_prev = filters.pms_measure(
                 b, a, s, s[..., pos] + std_pos * noise.meas[t - 1], noisy_prev, meas_vel_prev,
-                pos, vel, sens.dt,
+                sens.pos_indices, sens.vel_indices, sens.dt,
             )
             return s, policy_at(policy_params, meas, t), noisy_prev, meas_vel_prev
 

@@ -1,10 +1,17 @@
 """Policy optimization: BPTT through particle rollouts, Adam, and the
-convergence monitor, in a host loop.
+convergence monitor.
 
-Each iteration does one rollout, one backward pass and one Adam update on
-the device for L lanes at once, and reads the L costs back to the host once,
-where the control logic of ``mcpilco_tpu/control/trainer.py`` runs in plain
-Python, per lane:
+Each iteration of the loop has two parts.  The device body runs one
+rollout, one backward pass and the Adam candidate step for L lanes at once,
+and reads nothing but tensors that stay in place for the whole call: the
+policy leaves, the Adam moments, the iteration's learning rate, bias
+corrections and dropout rates, and its random numbers.  On CUDA the body
+is captured once per call as a CUDA graph (``torch.cuda.CUDAGraph``) and
+replayed every iteration, the counterpart of the JAX package's compiled
+loop (``mcpilco_tpu/control/trainer.py``, ``_optimize_chunk``); elsewhere,
+or with ``graph=False``, the same body runs uncaptured.  The host part
+draws the iteration's random numbers into those tensors, reads the L costs
+back once, and runs the control logic in plain Python, per lane:
 
 - manual Adam (torch.optim.Adam semantics) with a trainable-leaf mask and
   global-norm gradient clipping at ``grad_clip_norm``;
@@ -21,7 +28,9 @@ Python, per lane:
 - the NaN guard: a NaN cost is re-sampled with fresh noise up to
   ``max_nan_retries`` times without advancing the step, then the policy and
   optimizer are re-initialized;
-- the best-cost snapshot (``keep_best``).
+- the best-cost snapshot (``keep_best``);
+- the lane selection: the body's candidate params and moments are written
+  into the leaves and moments, in place, on the lanes that advanced.
 
 A lane is one optimization: its parameters are one slice of a leading lane
 axis, it has its own key, monitor, NaN retries and re-inits, and once done
@@ -35,12 +44,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import time
+import traceback
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..models.costs import CostBase
+from ..ops import fused_predict as fp
 from ..utils import prng
 from .rollout import InitialStateDistribution, RolloutEngine, RolloutNoise, stack_lanes
 
@@ -114,8 +127,6 @@ class _Lane:
 
     mon: ConvergenceMonitor
     cost_prev: float
-    states: torch.Tensor
-    inputs: torch.Tensor
     step: int = 0
     retry: int = 0
     reinit_count: int = 0
@@ -123,13 +134,171 @@ class _Lane:
     done: bool = False
     best_cost: float = math.inf
     costs: list = dataclasses.field(default_factory=list)
-    # per logged step, the loop iteration whose std it logged (-1: a re-init)
-    std_from: list = dataclasses.field(default_factory=list)
+    # per logged step, its rollout's particle std (0 for a re-init)
+    stds: list = dataclasses.field(default_factory=list)
 
 
 def _per_lane(t, like):
     """A per-lane tensor [L] broadcast against a leaf [L, ...]."""
     return t.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+# Uncaptured iterations of a call before its body is captured.  The first
+# run of the body loads every kernel module and library handle it touches
+# and makes its constants (``utils/consts``), none of which may happen
+# during a capture; each further one would cost a whole uncaptured
+# iteration per call.
+GRAPH_WARMUP = 1
+
+# Iterations of the optimization loop by how the body ran: uncaptured, the
+# capture (and its first replay), or a replay of the graph; "uncaptured_s"
+# and "replays_s" hold the host seconds of those iterations, from the host
+# part's start to the lane selection's end, "captures_s" those of the
+# captures themselves (capture and instantiation).
+graph_counts = {"uncaptured": 0, "captures": 0, "replays": 0, "uncaptured_s": 0.0,
+                "captures_s": 0.0, "replays_s": 0.0}
+
+
+def reset_graph_counts() -> None:
+    graph_counts.update(uncaptured=0, captures=0, replays=0, uncaptured_s=0.0, captures_s=0.0,
+                        replays_s=0.0)
+
+
+# one side stream per device for every call's warm-up: PyTorch keeps a
+# cuBLAS workspace per stream for the life of the process, so a new stream
+# per call would hold more device memory with every call
+_side_streams = {}
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    device = torch.device(device)
+    if device not in _side_streams:
+        _side_streams[device] = torch.cuda.Stream(device)
+    return _side_streams[device]
+
+
+# the lane axis of each RolloutNoise field
+_NOISE_LANE_AXIS = RolloutNoise(state=1, keep=1, init=0, meas=1, init_idx=0)
+
+
+@dataclasses.dataclass
+class _Static:
+    """The tensors the device body reads: written in place by the host part
+    before each run of the body, never reallocated during a call."""
+
+    leaves: dict  # the policy parameters [L, ...], requires_grad
+    m: dict  # Adam's moments
+    v: dict
+    hyper: torch.Tensor  # [4, L]: lr, 1 - b1^n, 1 - b2^n, dropout rate
+    host: torch.Tensor  # its staging copy on the host (pinned on CUDA)
+    dropout: bool  # False: the policy applies no dropout in this call
+    noise: Optional[RolloutNoise] = None  # allocated at the first put_noise
+
+    @classmethod
+    def new(cls, params: dict, dropout: bool) -> "_Static":
+        t = next(iter(params.values()))
+        L, dev = t.shape[0], t.device
+        return cls(leaves={k: v.clone().requires_grad_(True) for k, v in params.items()},
+                   m={k: torch.zeros_like(v) for k, v in params.items()},
+                   v={k: torch.zeros_like(v) for k, v in params.items()},
+                   hyper=torch.zeros((4, L), dtype=torch.float32, device=dev),
+                   host=torch.zeros((4, L), dtype=torch.float32, pin_memory=dev.type == "cuda"),
+                   dropout=dropout)
+
+    def set_hyper(self, rows) -> None:
+        self.host.numpy()[:] = rows
+        # the previous iteration's host read has waited for the last copy
+        self.hyper.copy_(self.host, non_blocking=True)
+
+    def put_noise(self, i: int, noise: RolloutNoise) -> None:
+        """Lane ``i``'s random numbers into the lane-batched buffers; a lane
+        without dropout keeps every feature."""
+        L = self.hyper.shape[1]
+        if self.noise is None:
+            self.noise = RolloutNoise(*(
+                None if t is None else t.new_empty(t.shape[:ax] + (L,) + t.shape[ax:])
+                for t, ax in zip(noise, _NOISE_LANE_AXIS)))
+        for buf, t, ax in zip(self.noise, noise, _NOISE_LANE_AXIS):
+            if buf is not None:
+                slot = buf[:, i] if ax else buf[i]
+                if t is None:
+                    slot.fill_(True)
+                else:
+                    slot.copy_(t)
+
+
+class _BodyOut(NamedTuple):
+    cost_std: torch.Tensor  # [2, L]: the costs and the particle stds
+    states: torch.Tensor  # [T, L, P, ds]
+    inputs: torch.Tensor  # [T, L, P, du]
+    params: dict  # Adam's candidate step of every lane
+    m: dict
+    v: dict
+
+
+def _failed_op(err: BaseException) -> str:
+    """Where the first exception of ``err``'s chain was raised: the
+    innermost frame of this package, else the innermost frame."""
+    while err.__context__ is not None:
+        err = err.__context__
+    frames = traceback.extract_tb(err.__traceback__)
+    ours = [f for f in frames if f"{os.sep}mcpilco_tpu_torch{os.sep}" in f.filename]
+    f = (ours or frames)[-1]
+    return f"{f.filename}:{f.lineno} ({f.line}): {type(err).__name__}: {err}"
+
+
+class _DeviceStep:
+    """Runs the device body of every iteration of one call: uncaptured, or
+    with ``capture`` the first ``GRAPH_WARMUP`` times on a side stream, then
+    captured once as a CUDA graph that every later call replays.  It holds
+    the body, and with it everything the graph reads, until :meth:`close`."""
+
+    def __init__(self, body, capture: bool, device):
+        self.body, self.capture = body, capture
+        self.graph = self.out = self.launches = None
+        self.warm = 0
+        self.side = _side_stream(device) if capture else None
+        self.ran = None  # how the last call ran: a key of graph_counts
+
+    def __call__(self) -> _BodyOut:
+        self.ran = "replays" if self.graph is not None else "uncaptured"
+        if self.graph is None and self.capture and self.warm == GRAPH_WARMUP:
+            self._capture()
+            self.ran = "captures"
+        graph_counts[self.ran] += 1
+        if self.graph is not None:
+            self.graph.replay()
+            self.launches.replay()
+            return self.out
+        if not self.capture:
+            return self.body()
+        self.warm += 1
+        main = torch.cuda.current_stream()
+        self.side.wait_stream(main)
+        with torch.cuda.stream(self.side):
+            out = self.body()
+        main.wait_stream(self.side)
+        return out
+
+    def _capture(self) -> None:
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with fp.CapturedLaunches() as launches, torch.cuda.graph(graph):
+                out = self.body()
+        except RuntimeError as err:
+            raise RuntimeError("the CUDA-graph capture of the optimizer step failed at "
+                               + _failed_op(err)) from err
+        graph_counts["captures_s"] += time.perf_counter() - t0
+        self.graph, self.out, self.launches = graph, out, launches
+
+    def close(self) -> None:
+        """Free the graph and the memory pool its capture allocated from."""
+        if self.graph is None:
+            return
+        self.graph = self.out = self.body = None
+        # a freed graph's pool stays reserved until the cache is emptied
+        torch.cuda.empty_cache()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,12 +332,13 @@ class PolicyOptimizer:
     max_nan_retries: int = 10
     num_restarts: int = 1
     restart_vmap: bool = True
-    # The JAX package cuts its compiled optimization loop into chunks of
-    # host dispatch of this many steps (adapted towards chunk_target_s
-    # seconds, at most chunk_iter_slack x the chunk's steps of loop
-    # iterations), which changes no number.  This host loop drives every
-    # step already: the fields are taken so that scenarios build the same
-    # optimizer in both packages, and change nothing here.
+    # The JAX package runs its compiled optimization loop in chunks of host
+    # dispatch of this many steps (adapted towards chunk_target_s seconds,
+    # at most chunk_iter_slack x the chunk's steps of loop iterations),
+    # which changes no number.  This loop reads the costs back after every
+    # iteration (one graph replay on CUDA): the fields are taken so that
+    # scenarios build the same optimizer in both packages, and change
+    # nothing here.
     chunk_steps: int = 500
     chunk_target_s: float = 15.0
     chunk_iter_slack: float = 2.0
@@ -179,17 +349,18 @@ class PolicyOptimizer:
     def _rollout_cost(self, params, gp_params, posterior, keys, p_drop, trial_index,
                       noise: Optional[RolloutNoise] = None):
         """(cost, (std, states, inputs)) of one rollout of L lanes from fresh
-        particles: ``keys`` a list of L keys, ``params`` [L, ...], ``p_drop``
-        one rate or one per lane; costs [L] and states [T, L, P, ds].
+        particles: ``params`` [L, ...]; ``noise`` the lanes' random numbers,
+        the initial particles' included, or None to draw them from ``keys``
+        (a list of L keys); ``p_drop`` one rate, one per lane, or a tensor
+        [L]; costs [L] and states [T, L, P, ds].
         """
         device = posterior.x_tr.device
-        s0 = torch.stack([
-            self.init_dist.sample(prng.stream(k, prng.STREAM_INIT_PARTICLES),
-                                  self.num_particles, device,
-                                  eps=None if noise is None else noise.init[i])
-            for i, k in enumerate(keys)
-        ])
-        res = self.engine.simulate(keys, params, gp_params, posterior, s0, self.horizon,
+        if noise is None:
+            noise = self.engine.draw_noise(keys, self.num_particles, self.horizon, p_drop, device,
+                                           init_dist=self.init_dist)
+        s0 = self.init_dist.sample(None, self.num_particles, device, eps=noise.init,
+                                   idx=noise.init_idx)
+        res = self.engine.simulate(None, params, gp_params, posterior, s0, self.horizon,
                                    p_dropout=p_drop, noise=noise)
         c, s = self.cost(res.states, res.inputs, trial_index)
         return c, (s, res.states, res.inputs)
@@ -214,12 +385,14 @@ class PolicyOptimizer:
         return grads
 
     def optimize(self, key, policy_params: dict, gp_params, posterior, num_opt_steps, lr0,
-                 p_dropout0, trial_index=0, noise_fn=None) -> OptResult:
+                 p_dropout0, trial_index=0, noise_fn=None, graph: Optional[bool] = None
+                 ) -> OptResult:
         """Run up to ``num_opt_steps`` (<= max_opt_steps) Adam steps of each
         of ``num_restarts`` lanes and return the winner's result.
 
         ``noise_fn(step_key)``, when given, supplies each rollout's
         :class:`RolloutNoise` in place of the generators (tests use it).
+        ``graph``: see :meth:`optimize_lanes`.
         """
         R = max(int(self.num_restarts), 1)
         inits = [policy_params]
@@ -230,7 +403,7 @@ class PolicyOptimizer:
         stack = lambda ps: {k: torch.stack([p[k] for p in ps]) for k in policy_params}
         run = lambda ps, rids: self.optimize_lanes(
             [key] * len(rids), stack(ps), gp_params, posterior, num_opt_steps, lr0, p_dropout0,
-            trial_index, rids=rids, noise_fn=noise_fn)
+            trial_index, rids=rids, noise_fn=noise_fn, graph=graph)
         if self.restart_vmap:
             results, metric = run(inits, list(range(R)))
         else:
@@ -244,15 +417,20 @@ class PolicyOptimizer:
 
     def optimize_lanes(self, keys: List, policy_params: dict, gp_params, posterior,
                        num_opt_steps, lr0, p_dropout0, trial_index=0, rids=None,
-                       noise_fn=None):
+                       noise_fn=None, graph: Optional[bool] = None):
         """Optimize L lanes in one lane-batched loop: ``policy_params`` [L, ...],
         one key per lane, ``rids`` the lanes' restart ids (folded into their
         keys; 0 by default).  ``gp_params`` and ``posterior`` are shared or
         have the lane axis in front of every leaf.
 
-        Each iteration runs one rollout and one backward pass for all lanes
-        and reads the [L] costs back once; a lane that is done stays frozen
-        (its rollout still runs and is discarded) until every lane is done.
+        Each iteration runs the device body (:meth:`_body`: one rollout, one
+        backward pass and the Adam candidate for all lanes) and reads the [L]
+        costs back once; a lane that is done stays frozen (its rollout still
+        runs and is discarded) until every lane is done.  ``graph`` None
+        captures the body as a CUDA graph when the policy is on a CUDA
+        device (after ``GRAPH_WARMUP`` uncaptured iterations) and replays it
+        for every later iteration; False runs it uncaptured; a capture that
+        fails raises.
         Returns (one :class:`OptResult` per lane, each lane's winner metric
         [L]: its best cost under ``keep_best``, else its last).
         """
@@ -261,89 +439,121 @@ class PolicyOptimizer:
         rids = [0] * L if rids is None else list(rids)
         policy = self.engine.policy
         mask = policy.param_mask(policy_params)
-
-        def rollout(params, ks, rates):
-            noise = None if noise_fn is None else stack_lanes([noise_fn(k) for k in ks])
-            return self._rollout_cost(params, gp_params, posterior, ks, rates, trial_index, noise)
-
         params = {k: v.detach() for k, v in policy_params.items()}
         dev = next(iter(params.values())).device
+        if graph is None:
+            graph = dev.type == "cuda"
+        elif graph and dev.type != "cuda":
+            raise ValueError(f"graph=True captures the step on a CUDA device; the policy is on "
+                             f"{dev}")
+        P, T, init = self.num_particles, self.horizon, self.init_dist
+
+        def lane_noise(k, rate):
+            """One lane's random numbers from its step key, on the host side
+            of the iteration."""
+            if noise_fn is None:
+                return self.engine.draw_noise(k, P, T, rate, dev, init_dist=init)
+            n = noise_fn(k)
+            if n.init is None or (init.kind == "multi_gauss" and n.init_idx is None):
+                eps, idx = init.draw(prng.stream(k, prng.STREAM_INIT_PARTICLES), P, dev)
+                n = n._replace(init=eps if n.init is None else n.init,
+                               init_idx=idx if n.init_idx is None else n.init_idx)
+            return n
+
         # probe rollout to initialize the convergence monitors (dropout IS
         # applied there); forward only
+        probe = stack_lanes([lane_noise(prng.fold(k, 0x9999), float(p_dropout0)) for k in keys])
         with torch.no_grad():
-            c0, (_, st0, in0) = rollout(params, [prng.fold(k, 0x9999) for k in keys],
-                                        float(p_dropout0))
-        lanes = [_Lane(mon=self._monitor(lr0, p_dropout0), cost_prev=0.0 if math.isnan(c) else c,
-                       states=st0[:, i], inputs=in0[:, i])
-                 for i, c in enumerate(c0.tolist())]
-        m = {k: torch.zeros_like(v) for k, v in params.items()}
-        v = {k: torch.zeros_like(t) for k, t in params.items()}
-        best = dict(params)
-        stds = []  # per iteration, the lanes' std [L] (read back at the end)
-        while True:
-            live = [not ln.done and ln.step < num_steps for ln in lanes]
-            if not any(live):
-                break
-            # the retry counter and the restart id ride high bits so that the
-            # healthy path of lane 0 keeps the plain (step, reinit) schedule
-            kts = [prng.fold(keys[i], ln.step,
-                             ln.reinit_count + ln.retry * (1 << 20) + rids[i] * (1 << 26))
-                   for i, ln in enumerate(lanes)]
-            leaves = {k: t.detach().requires_grad_(True) for k, t in params.items()}
-            cost, (std, st, inp) = rollout(leaves, kts, [ln.mon.p_drop for ln in lanes])
-            grads = dict(zip(leaves, torch.autograd.grad(cost.sum(), list(leaves.values()))))
-            costs = cost.detach().cpu().tolist()  # the iteration's one host read
-            stds.append(std.detach())
-            it = len(stds) - 1
-            adv, reinit = [False] * L, {}
-            for i, (ln, c) in enumerate(zip(lanes, costs)):
-                if not live[i]:
-                    continue
-                if not math.isnan(c):
-                    adv[i] = True
-                elif ln.retry < self.max_nan_retries:
-                    ln.retry += 1
-                else:
-                    # give up: log cost_prev for this step and re-initialize
-                    ln.costs.append(ln.cost_prev)
-                    ln.std_from.append(-1)
-                    ln.step += 1
-                    ln.retry = 0
-                    reinit[i] = prng.stream(kts[i], prng.STREAM_POLICY_INIT)
-                    ln.mon = self._monitor(lr0, p_dropout0)
-                    ln.cost_prev = 0.0
-                    ln.reinit_count += 1
-                    ln.adam_count = 0
-            if any(adv):
-                params, m, v, best = self._advance(lanes, adv, costs, params, grads, mask, m, v,
-                                                   best, dev)
-                for i, ln in enumerate(lanes):
-                    if adv[i]:
-                        ln.std_from.append(it)
-                        ln.states, ln.inputs = st[:, i].detach(), inp[:, i].detach()
-            if reinit:
-                idx = list(reinit)
-                fresh = policy.reinit({k: t[idx] for k, t in params.items()}, list(reinit.values()))
-                params = {k: t.index_copy(0, torch.tensor(idx, device=dev), fresh[k])
-                          for k, t in params.items()}
-                m, v = ({k: t.index_fill(0, torch.tensor(idx, device=dev), 0.0)
-                         for k, t in state.items()} for state in (m, v))
-        return self._lane_results(lanes, params, best, stds)
+            c0, (_, st0, in0) = self._rollout_cost(params, gp_params, posterior, None,
+                                                   float(p_dropout0), trial_index, probe)
+        lanes = [_Lane(mon=self._monitor(lr0, p_dropout0), cost_prev=0.0 if math.isnan(c) else c)
+                 for c in c0.tolist()]
+        buf = _Static.new(params, dropout=float(p_dropout0) > 0)
+        best = {k: t.clone() for k, t in params.items()}
+        last = [st0, in0]  # each lane's rollout of its last healthy step
+        b1, b2 = self.adam_b1, self.adam_b2
+        step = _DeviceStep(lambda: self._body(buf, gp_params, posterior, trial_index, mask), graph,
+                           dev)
+        out = None
+        try:
+            while True:
+                live = [not ln.done and ln.step < num_steps for ln in lanes]
+                if not any(live):
+                    break
+                t_iter = time.perf_counter()
+                # the retry counter and the restart id ride high bits so that
+                # the healthy path of lane 0 keeps the plain (step, reinit)
+                # schedule
+                kts = [prng.fold(keys[i], ln.step,
+                                 ln.reinit_count + ln.retry * (1 << 20) + rids[i] * (1 << 26))
+                       for i, ln in enumerate(lanes)]
+                for i, (k, ln) in enumerate(zip(kts, lanes)):
+                    buf.put_noise(i, lane_noise(k, ln.mon.p_drop))
+                buf.set_hyper([[ln.mon.lr for ln in lanes],
+                               [1.0 - b1 ** (ln.adam_count + 1) for ln in lanes],
+                               [1.0 - b2 ** (ln.adam_count + 1) for ln in lanes],
+                               [ln.mon.p_drop for ln in lanes]])
+                out = step()
+                costs, stds = out.cost_std.cpu().tolist()  # the iteration's one host read
+                adv, reinit = [False] * L, {}
+                for i, (ln, c) in enumerate(zip(lanes, costs)):
+                    if not live[i]:
+                        continue
+                    if not math.isnan(c):
+                        adv[i] = True
+                    elif ln.retry < self.max_nan_retries:
+                        ln.retry += 1
+                    else:
+                        # give up: log cost_prev for this step and re-initialize
+                        ln.costs.append(ln.cost_prev)
+                        ln.stds.append(0.0)
+                        ln.step += 1
+                        ln.retry = 0
+                        reinit[i] = prng.stream(kts[i], prng.STREAM_POLICY_INIT)
+                        ln.mon = self._monitor(lr0, p_dropout0)
+                        ln.cost_prev = 0.0
+                        ln.reinit_count += 1
+                        ln.adam_count = 0
+                if any(adv):
+                    last = self._advance(lanes, adv, costs, stds, buf, out, best, last)
+                if reinit:
+                    self._reinit(buf, reinit)
+                if step.ran != "captures":
+                    graph_counts[step.ran + "_s"] += time.perf_counter() - t_iter
+        finally:
+            out = None
+            step.close()
+        return self._lane_results(lanes, buf.leaves, best, last)
 
-    def _advance(self, lanes, adv, costs, params, grads, mask, m, v, best, dev):
-        """One Adam step of the lanes in ``adv``, their monitors, and the
-        best-cost snapshot; the other lanes' tensors are left as they are."""
+    def _body(self, buf: _Static, gp_params, posterior, trial_index, mask) -> _BodyOut:
+        """The device part of one iteration, for every lane: the rollout from
+        ``buf.noise`` at ``buf.leaves``, its policy gradient (masked and
+        clipped) and Adam's candidate step from ``buf.m``, ``buf.v`` and
+        ``buf.hyper``.  It reads no tensor but ``buf``'s, the posterior and
+        the GP parameters, draws no random number, makes no tensor from
+        host data and reads nothing back: on CUDA it is what the graph
+        captures."""
+        rate = buf.hyper[3] if buf.dropout else 0.0
+        cost, (std, states, inputs) = self._rollout_cost(buf.leaves, gp_params, posterior, None,
+                                                         rate, trial_index, buf.noise)
+        names = list(buf.leaves)
+        grads = self._masked_grads(
+            dict(zip(names, torch.autograd.grad(cost.sum(), [buf.leaves[k] for k in names]))),
+            mask)
         b1, b2, eps = self.adam_b1, self.adam_b2, self.adam_eps
-        counts = [ln.adam_count + 1 for ln in lanes]
-        # the step's lr, bias corrections and lane masks in one copy
-        host = torch.tensor([[ln.mon.lr for ln in lanes], [1.0 - b1**n for n in counts],
-                             [1.0 - b2**n for n in counts]], dtype=torch.float32)
-        lr, bc1, bc2 = host.to(dev)
-        grads = self._masked_grads(grads, mask)
-        m_new = {k: b1 * m[k] + (1 - b1) * g for k, g in grads.items()}
-        v_new = {k: b2 * v[k] + (1 - b2) * g * g for k, g in grads.items()}
-        new = {k: p - _per_lane(lr, p) * (m_new[k] / _per_lane(bc1, p))
-               / (torch.sqrt(v_new[k] / _per_lane(bc2, p)) + eps) for k, p in params.items()}
+        lr, bc1, bc2 = buf.hyper[0], buf.hyper[1], buf.hyper[2]
+        with torch.no_grad():
+            m = {k: b1 * buf.m[k] + (1 - b1) * g for k, g in grads.items()}
+            v = {k: b2 * buf.v[k] + (1 - b2) * g * g for k, g in grads.items()}
+            new = {k: p - _per_lane(lr, p) * (m[k] / _per_lane(bc1, p))
+                   / (torch.sqrt(v[k] / _per_lane(bc2, p)) + eps) for k, p in buf.leaves.items()}
+        return _BodyOut(cost_std=torch.stack([cost.detach(), std]), states=states.detach(),
+                        inputs=inputs.detach(), params=new, m=m, v=v)
+
+    def _advance(self, lanes, adv, costs, stds, buf: _Static, out: _BodyOut, best, last):
+        """The monitors of the lanes in ``adv``; then, on those lanes, the
+        best-cost snapshot, Adam's step and moments written into ``buf`` in
+        place, and their rollout kept.  Returns the kept rollouts."""
         improved, reset = [False] * len(lanes), [False] * len(lanes)
         for i, ln in enumerate(lanes):
             if not adv[i]:
@@ -351,32 +561,42 @@ class PolicyOptimizer:
             c = costs[i]
             reduce_lr, exit_now = ln.mon.update(ln.step, c - ln.cost_prev)
             reset[i] = reduce_lr
-            ln.adam_count = 0 if reduce_lr else counts[i]
+            ln.adam_count = 0 if reduce_lr else ln.adam_count + 1
             if c < ln.best_cost:
                 ln.best_cost = c
                 improved[i] = True
             ln.cost_prev = c
             ln.costs.append(c)
+            ln.stds.append(stds[i])
             ln.retry = 0
             ln.step += 1
             ln.done = exit_now
-
-        def where(flags, a, b):
-            if all(flags):
-                return a
-            if not any(flags):
-                return b
-            sel = torch.tensor(flags, device=dev)
-            return {k: torch.where(_per_lane(sel, a[k]), a[k], b[k]) for k in a}
-
         # a plateau's lr reduction restarts that lane's Adam moments
-        zeros = {k: torch.zeros_like(t) for k, t in m.items()} if any(reset) else None
         moved = [a and not r for a, r in zip(adv, reset)]
-        m, v = where(reset, zeros, where(moved, m_new, m)), where(reset, zeros, where(moved, v_new, v))
-        return where(adv, new, params), m, v, where(improved, params, best)
+        with torch.no_grad():
+            _write_lanes(improved, best, buf.leaves)  # the params that scored the cost
+            _write_lanes(adv, buf.leaves, out.params)
+            for state, new in ((buf.m, out.m), (buf.v, out.v)):
+                _write_lanes(moved, state, new)
+                if any(reset):
+                    _write_lanes(reset, state, {k: torch.zeros_like(t) for k, t in state.items()})
+        # copies: the graph's outputs are overwritten by the next replay
+        return [_take_lanes(adv, new, old) for new, old in zip((out.states, out.inputs), last)]
 
-    def _lane_results(self, lanes, params, best, stds):
-        stds = torch.stack(stds).cpu() if stds else None  # [iterations, L]
+    def _reinit(self, buf: _Static, reinit: dict) -> None:
+        """Re-initialize the lanes of ``reinit`` (lane -> key) in place:
+        fresh policy draws, zero Adam moments."""
+        ix = torch.tensor(list(reinit), device=buf.hyper.device)
+        with torch.no_grad():
+            fresh = self.engine.policy.reinit({k: t[ix] for k, t in buf.leaves.items()},
+                                              list(reinit.values()))
+            for k, t in buf.leaves.items():
+                t.index_copy_(0, ix, fresh[k])
+            for state in (buf.m, buf.v):
+                for t in state.values():
+                    t.index_fill_(0, ix, 0.0)
+
+    def _lane_results(self, lanes, params, best, last):
         results, metric = [], []
         for i, ln in enumerate(lanes):
             steps = ln.step
@@ -384,19 +604,41 @@ class PolicyOptimizer:
             std_history = torch.zeros(self.max_opt_steps, dtype=torch.float32)
             if steps:
                 cost_history[:steps] = torch.tensor(ln.costs)
-                std_history[:steps] = torch.tensor(
-                    [0.0 if it < 0 else float(stds[it, i]) for it in ln.std_from])
+                std_history[:steps] = torch.tensor(ln.stds)
             final = best if self.keep_best and math.isfinite(ln.best_cost) else params
             results.append(OptResult(
                 policy_params={k: t[i].detach() for k, t in final.items()},
                 cost_history=cost_history,
                 std_history=std_history,
                 steps_done=steps,
-                states=ln.states,
-                inputs=ln.inputs,
+                states=last[0][:, i],
+                inputs=last[1][:, i],
                 reinit_count=ln.reinit_count,
                 final_lr=ln.mon.lr,
                 final_p_dropout=ln.mon.p_drop,
             ))
             metric.append(ln.best_cost if self.keep_best else ln.cost_prev)
         return results, np.asarray(metric, dtype=np.float64)
+
+
+def _lane_mask(sel, like, axis=0):
+    """A bool tensor [L] that broadcasts against ``like``, whose lane axis
+    is ``axis``."""
+    return sel.reshape((1,) * axis + (-1,) + (1,) * (like.dim() - axis - 1))
+
+
+def _write_lanes(flags, dst: dict, src: dict) -> None:
+    """``dst[k] <- src[k]`` in place, on the lanes in ``flags``."""
+    if not any(flags):
+        return
+    sel = None if all(flags) else torch.tensor(flags, device=next(iter(dst.values())).device)
+    for k, d in dst.items():
+        d.copy_(src[k] if sel is None else torch.where(_lane_mask(sel, d), src[k], d))
+
+
+def _take_lanes(flags, new, old):
+    """Per lane (axis 1), ``new`` where ``flags`` else ``old``: a tensor of
+    its own, never ``new``."""
+    if all(flags):
+        return new.clone()
+    return torch.where(_lane_mask(torch.tensor(flags, device=new.device), new, axis=1), new, old)

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import consts
 from .kernels import _as_tuple
 
 
@@ -61,13 +62,13 @@ class QuadraticDistance(CostBase):
 
     def _dist(self, states):
         if self.abs_dims is not None:
-            ab = torch.zeros(states.shape[-1], dtype=torch.bool, device=states.device)
-            ab[list(self.abs_dims)] = True
-            states = torch.where(ab, torch.abs(states), states)
+            ab = tuple(i in self.abs_dims for i in range(states.shape[-1]))
+            states = torch.where(consts.tensor(ab, torch.bool, states.device), torch.abs(states),
+                                 states)
         if self.active_dims is not None:
-            states = states[..., list(self.active_dims)]
-        ls = torch.as_tensor(self.lengthscales, dtype=states.dtype, device=states.device)
-        tgt = torch.as_tensor(self.target_state, dtype=states.dtype, device=states.device)
+            states = states[..., consts.index(self.active_dims, states.device)]
+        ls = consts.tensor(self.lengthscales, states.dtype, states.device)
+        tgt = consts.tensor(self.target_state, states.dtype, states.device)
         d = (states - tgt) / ls
         return torch.sum(d * d, dim=-1)
 
@@ -117,19 +118,18 @@ class SaturatedTrajectoryTracking(CostBase):
 
     def stage_costs(self, states, inputs, trial_index=0):
         T, n = states.shape[0], len(self.target_traj)
-        opts = dict(dtype=states.dtype, device=states.device)
         # the time index clamped into the target: an executed trial carries
         # T+1 states against a T-step target, and its last sample is scored
         # against the final target state
-        rows = [self.target_traj[min(t, n - 1)] for t in range(T)]
-        traj = torch.tensor(rows, **opts)  # [T, ds]
+        rows = tuple(self.target_traj[min(t, n - 1)] for t in range(T))
+        traj = consts.tensor(rows, states.dtype, states.device)  # [T, ds]
         ls = self.lengthscales
         if self.per_trial:
             ls = _schedule_row(ls, trial_index)
-        ls = torch.as_tensor(ls, **opts)
+        ls = consts.tensor(ls, states.dtype, states.device)
         err = states - traj.reshape((T,) + (1,) * (states.dim() - 2) + (traj.shape[-1],))
         if self.used_indices is not None:
-            idx = list(self.used_indices)
+            idx = consts.index(self.used_indices, states.device)
             err = err[..., idx]
             ls = ls[..., idx] if ls.dim() else ls
         d = torch.sum((err / ls) ** 2, dim=-1)

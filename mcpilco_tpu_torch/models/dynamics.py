@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils import consts
 from .kernels import _as_tuple
 
 
@@ -76,8 +77,8 @@ class DynamicsModel:
 
 def _angle_extend(states, angle_idx, not_angle_idx):
     """[x_other, sin(x_ang), cos(x_ang)]."""
-    ang = states[..., list(angle_idx)]
-    rest = states[..., list(not_angle_idx)]
+    ang = states[..., consts.index(angle_idx, states.device)]
+    rest = states[..., consts.index(not_angle_idx, states.device)]
     return torch.cat([rest, torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
@@ -162,11 +163,11 @@ class SpeedIntegration(DynamicsModel):
         return torch.cat([ext, inputs], dim=-1)
 
     def gp_targets(self, states):
-        vel = states[..., list(self.vel_indices)]
+        vel = states[..., consts.index(self.vel_indices, states.device)]
         return (vel[1:] - vel[:-1]).T
 
     def next_state(self, state, inp, delta):
-        vel, pos = list(self.vel_indices), list(self.pos_indices)
+        vel, pos = (consts.index(i, state.device) for i in (self.vel_indices, self.pos_indices))
         # on [rows, ds]: with a leading axis of size 1 (one lane) the indexing
         # backward would add two reductions per rollout step
         shape = state.shape

@@ -19,6 +19,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils import consts
+
 
 def butter1(wn: float) -> Tuple[np.ndarray, np.ndarray]:
     """First-order Butterworth low-pass, cutoff ``wn`` in Nyquist units."""
@@ -49,10 +51,12 @@ def pms_measure(b, a, s, noisy_pos, noisy_prev, meas_vel_prev, pos, vel, dt):
 
     ``s`` [..., ds] is the true state; ``noisy_prev`` the previous raw
     measurement (noisy positions, and raw differences in the velocity
-    slots); ``meas_vel_prev`` the previous filtered velocities.  Returns
+    slots); ``meas_vel_prev`` the previous filtered velocities; ``pos`` and
+    ``vel`` the position and velocity indices (sequences of ints).  Returns
     (meas, noisy, meas_vel): what the policy sees, the raw measurement, and
     the filtered velocities.
     """
+    pos, vel = (consts.index(i, s.device) for i in (pos, vel))
     noisy_vel = (noisy_pos - noisy_prev[..., pos]) / dt
     meas_vel = iir_step(b, a, noisy_vel, noisy_prev[..., vel], meas_vel_prev)
     meas, noisy = s.clone(), s.clone()

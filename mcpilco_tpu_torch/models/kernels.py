@@ -18,6 +18,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import consts
+
 
 def _as_tuple(x) -> Optional[Tuple[int, ...]]:
     if x is None:
@@ -28,7 +30,7 @@ def _as_tuple(x) -> Optional[Tuple[int, ...]]:
 def _take_dims(X: torch.Tensor, dims: Optional[Tuple[int, ...]]) -> torch.Tensor:
     if dims is None or list(dims) == list(range(X.shape[-1])):
         return X
-    return X[..., list(dims)]
+    return X[..., consts.index(dims, X.device)]
 
 
 def sq_dist(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -268,6 +270,16 @@ class Poly(Kernel):
         return self.base.diag(params, X) ** self.degree
 
 
+def _product(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The product over ``dim`` as a chain of multiplications, the same
+    values as ``torch.prod``: its backward counts the input's zeros on the
+    host, which the optimizer's CUDA graph cannot capture."""
+    out, *rest = t.unbind(dim)
+    for f in rest:
+        out = out * f
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class MPK(Kernel):
     """Multiplicative Polynomial Kernel of a given degree:
@@ -310,13 +322,13 @@ class MPK(Kernel):
         diag = torch.exp(2.0 * params["log_sigma_diag"])  # [*B, degree, nf]
         a = p1.unsqueeze(-3) * diag.unsqueeze(-2)  # [*B, degree, N1, nf]
         g = a @ p2.unsqueeze(-3).transpose(-1, -2)  # [*B, degree, N1, N2]
-        return torch.prod(g, dim=-3)
+        return _product(g, dim=-3)
 
     def diag(self, params, X):
         p = self.phi(X)
         diag = torch.exp(2.0 * params["log_sigma_diag"])
         g = torch.sum((p * p).unsqueeze(-3) * diag.unsqueeze(-2), dim=-1)  # [*B, degree, N]
-        return torch.prod(g, dim=-2)
+        return _product(g, dim=-2)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -24,13 +24,13 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils import prng
+from ..utils import consts, prng
 from .kernels import _as_tuple
 
 
 def squash(u: torch.Tensor, u_max) -> torch.Tensor:
     """Smoothly constrain inputs to (-u_max, u_max)."""
-    um = torch.as_tensor(u_max, dtype=u.dtype, device=u.device)
+    um = consts.tensor(u_max, u.dtype, u.device)
     return um * torch.tanh(u / um)
 
 
@@ -255,8 +255,8 @@ class SumOfGaussians(PolicyBase):
     def features(self, params, policy_in):
         """exp(-squared distance to centers): [..., num_basis]."""
         if self.scale_factor is not None:
-            policy_in = policy_in / torch.as_tensor(self.scale_factor, dtype=policy_in.dtype,
-                                                    device=policy_in.device)
+            policy_in = policy_in / consts.tensor(self.scale_factor, policy_in.dtype,
+                                                  policy_in.device)
         ls = torch.exp(params["log_lengthscales"])[..., None, :]  # [*L, 1, nf]
         s = policy_in / ls
         c = params["centers"] / ls
@@ -305,8 +305,8 @@ class SumOfGaussiansWithAngles(SumOfGaussians):
         object.__setattr__(self, "non_angle_indices", _as_tuple(self.non_angle_indices))
 
     def _policy_input(self, states, t):
-        ang = states[..., list(self.angle_indices)]
-        rest = states[..., list(self.non_angle_indices)]
+        ang = states[..., consts.index(self.angle_indices, states.device)]
+        rest = states[..., consts.index(self.non_angle_indices, states.device)]
         return torch.cat([rest, torch.cos(ang), torch.sin(ang)], dim=-1)
 
 

@@ -44,7 +44,8 @@ BUILD_DIR = _PKG / "_build"
 MAX_D = 32  # input dims the kernels take (csrc MAX_D; above 8 they walk chunks of 8)
 
 # Kernel launches by the wrappers below, one per launch, and the lanes those
-# launches carried (L per launch).
+# launches carried (L per launch); launches recorded into a CUDA graph count
+# once per replay (CapturedLaunches).
 launches = {"fwd": 0, "bwd": 0}
 launched_lanes = {"fwd": 0, "bwd": 0}
 
@@ -52,6 +53,29 @@ launched_lanes = {"fwd": 0, "bwd": 0}
 def reset_launches() -> None:
     for counts in (launches, launched_lanes):
         counts.update(fwd=0, bwd=0)
+
+
+class CapturedLaunches:
+    """The launches a CUDA-graph capture records.  The wrappers count a
+    call when it is made, and a call made while a stream captures launches
+    nothing then: around the capture, this takes those calls back out of
+    the counts, and :meth:`replay` adds them once per replay of the graph."""
+
+    def __enter__(self):
+        self._before = (dict(launches), dict(launched_lanes))
+        return self
+
+    def __exit__(self, *exc):
+        self.counts = [{k: now[k] - was[k] for k in now}
+                       for now, was in zip((launches, launched_lanes), self._before)]
+        launches.update(self._before[0])
+        launched_lanes.update(self._before[1])
+        return False
+
+    def replay(self) -> None:
+        for counts, add in zip((launches, launched_lanes), self.counts):
+            for k, n in add.items():
+                counts[k] += n
 
 _lib = None
 _tiles = None  # (K1 particles, K1 columns of F, K2 particles, K2 training points) per block
@@ -174,6 +198,8 @@ def _vec(M, *tensors) -> int:
 
 
 def _stream(device):
+    # read at every launch: under a capture it is the capturing stream,
+    # which is what records K1/K2 into the graph
     return torch.cuda.current_stream(device).cuda_stream
 
 

@@ -14,13 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from mcpilco_tpu_torch.scripts import apply_policy, repeat, train_cartpole
+from mcpilco_tpu_torch.scripts import apply_policy, profile_opt, repeat, train_cartpole
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ["train_cartpole", "train_cartpole_pms", "train_furuta", "train_ur5",
-           "train_cartpole_mujoco", "apply_policy", "repeat"]
+           "train_cartpole_mujoco", "apply_policy", "repeat", "profile_opt"]
 # repeat's seeds cut to a few seconds each
 TINY_KW = ["--scenario-kw", "num_particles=16", "--scenario-kw", "opt_steps=(3,)",
            "--scenario-kw", "gp_epochs=30", "--scenario-kw", "num_basis=10"]
@@ -132,3 +132,17 @@ def test_repeat_farm_takes(scenario, tmp_path, monkeypatch):
     assert set(summary) == _jax_summary_keys(tmp_path, monkeypatch)
     assert summary["seeds"] == [1, 2] and summary["complete"]
     assert all(np.isfinite(summary["per_seed_cost"][s]) for s in ("1", "2"))
+
+
+def test_profile_opt_on_the_cpu(tmp_path, capsys):
+    """The uncaptured step's host time only: no graph and no device figure
+    without a card."""
+    out = tmp_path / "profile.json"
+    rc = profile_opt.main(["--smoke", "--device", "cpu", "--steps", "2", "--turns", "1",
+                           "--epochs", "30", "--out", str(out)])
+    assert rc == 0
+    report = json.loads(out.read_text())
+    assert report["device"] == "cpu" and list(report["modes"]) == ["uncaptured"]
+    row = report["modes"]["uncaptured"]
+    assert len(row["host_ms"]) == 1 and row["host_ms"][0] > 0 and row["busy_ms"] is None
+    assert "not measured" in capsys.readouterr().out
