@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases (each prints one line with its time; any failure exits non-zero).
 Every optimization runs as the port's users run it: on the card
 ``PolicyOptimizer`` captures its iteration as a CUDA graph after one
-uncaptured iteration and replays it; phase 15 holds the graph against the
-uncaptured body (``graph=False``).
+uncaptured iteration and replays it, K iterations per host read; phase 15
+holds that against one read per iteration (``chunk=1``) and, on the
+flagship, against the uncaptured body (``graph=False``).
 
 
 1. build the fused GP-predict kernels K1/K2 from ``csrc/`` with nvcc;
@@ -110,17 +111,23 @@ uncaptured body (``graph=False``).
     seeds; (e) the 4PMS farm's posteriors under the legacy variance
     operator: ``MultiGP.predict`` launches no kernel and agrees with the
     factor form through K1 at FWD_TOL;
-15. the graph: on five paths (the flagship of phase 3, 4PMS of phase 5, the
+15. the loop: on five paths (the flagship of phase 3, 4PMS of phase 5, the
     flagship farm at S=4 of phase 7, Furuta semiparametric of phase 9, UR5
     with remat of phase 13, each fitted there, or here with 500 epochs when
-    its phase did not run), the optimizer step graphed against uncaptured:
-    host ms/step in turns, device busy, device events and host CUDA API
-    calls per step, idle share, capture + instantiate seconds, K1/K2 per
-    graphed step, and a learning curve graphed and twice uncaptured (10
-    steps; 3 for Furuta and UR5): events within 0.4%, costs and params
-    within the two uncaptured runs' spread or 1e-5 relative, K1/K2 counted
-    alike; then the flagship's reserved memory over three graphed calls (no
-    growth).  One JSON line ``{"graph": ...}`` holds the rows.
+    its phase did not run), the graphed optimizer step at its default
+    iterations per host read against one read per iteration (``chunk=1``),
+    and on the flagship against the uncaptured body too: host ms/step in
+    turns, device busy, the device's idle time inside one replay, device
+    events and host CUDA API calls per step, idle share, capture +
+    instantiate seconds, K1/K2 per step, and a learning curve in each mode
+    (10 steps; 3 for Furuta and UR5) with its host reads and the iterations
+    run after the lanes stopped: the chunked curve and params bitwise those
+    of chunk=1 (the uncaptured ones within two uncaptured runs' spread or
+    1e-5 relative), events within 0.4%, K1/K2 counted alike; then the
+    flagship made to exit at step 2 of a 10-step call (at most
+    ``POLL_LAG`` - 1 iterations after the exit, results bitwise those of
+    chunk=1) and its reserved memory over three graphed calls (no growth).
+    One JSON line ``{"graph": ...}`` holds the rows.
 
 Phase 2 also holds K1/K2 in their wide path (input dims above 8, walked in
 chunks of 8) against their plain versions at the Furuta shapes ('se', D=12,
@@ -1602,33 +1609,38 @@ def ur5_phase(fp, dev):
 
 
 # The fitted optimizer paths of phases 3, 5, 7, 9 and 13 by name, which
-# phase 15 holds graphed against uncaptured (it fits its own where a phase
-# did not run): each ``step(n, graph, salt)`` runs n optimizer steps from the
-# key folded with ``salt`` and returns (costs, final policy params).
+# phase 15 holds chunked against one host read per iteration (it fits its
+# own where a phase did not run): each ``step(n, graph, salt, chunk)`` runs
+# n optimizer steps from the key folded with ``salt`` and returns (costs,
+# final policy params); ``step.agent`` is the path's agent.
 GRAPH_PATHS = {}
-# phase 15's depth per path: host steps per window, profiled steps, learning
-# curve steps; a Furuta step takes ~1 s and a UR5 step ~2 s on the host
-# uncaptured, and their uncaptured windows hold ~45K and ~67K kernel
-# records per step, as many runtime records again, and a probe rollout
-GRAPH_DEPTH = {"flagship": (3, 2, 10), "4pms": (3, 2, 10), "farm": (3, 2, 10),
-               "furuta": (2, 1, 3), "ur5": (2, 1, 3)}
+# phase 15's depth per path: host steps per window (a chunk of that many
+# replays), profiled steps, learning curve steps; a Furuta step takes ~0.1 s
+# and a UR5 step ~0.2 s graphed, ~1 s and ~2 s uncaptured (the flagship's
+# alone runs uncaptured), and their windows hold ~45K and ~67K kernel
+# records per step
+GRAPH_DEPTH = {"flagship": (10, 2, 10), "4pms": (10, 2, 10), "farm": (10, 2, 10),
+               "furuta": (4, 1, 3), "ur5": (3, 1, 3)}
 # phase 15's five paths and what each is
 GRAPH_LABELS = {"flagship": "flagship, P=400 (phase 3)", "4pms": "4PMS, M=448 (phase 5)",
                 "farm": f"flagship farm, S={FARM_SEEDS} (phase 7)",
                 "furuta": "Furuta semiparametric, plain predict (phase 9)",
                 "ur5": "UR5 Sum(SE, MPK1), remat (phase 13)"}
+# phase 15's modes: (graph, chunk); "chunked" is what every other phase runs
+CHUNK_MODES = {"chunked": (True, None), "chunk=1": (True, 1), "uncaptured": (False, None)}
 
 
 def agent_path(agent):
     """One agent's optimizer as a phase-15 path."""
     from mcpilco_tpu_torch.utils import prng
 
-    def step(n, graph, salt=1):
+    def step(n, graph, salt=1, chunk=None):
         res = agent.optimizer.optimize(prng.fold(prng.root_key(7), salt), agent.policy_params,
                                        agent.gp_params, agent.posterior, n, 0.01, 0.25,
-                                       graph=graph)
+                                       graph=graph, chunk=chunk)
         torch.cuda.synchronize()
         return res.cost_history[: res.steps_done].numpy(), res.policy_params
+    step.agent = agent
     return step
 
 
@@ -1637,15 +1649,16 @@ def farm_path(agent, farm):
     phase-15 path; costs [S, n], params with the lane axis."""
     from mcpilco_tpu_torch.utils import prng
 
-    def step(n, graph, salt=1):
+    def step(n, graph, salt=1, chunk=None):
         keys = [prng.fold(prng.stream(k, prng.STREAM_ROLLOUT), salt) for k in farm.keys]
         results, _ = agent.optimizer.optimize_lanes(keys, farm.policy_params, farm.gp_params,
                                                     farm.posterior, n, 0.01, 0.25, 1,
-                                                    graph=graph)
+                                                    graph=graph, chunk=chunk)
         torch.cuda.synchronize()
         return (np.stack([r.cost_history[: r.steps_done].numpy() for r in results]),
                 {k: torch.stack([r.policy_params[k] for r in results])
                  for k in results[0].policy_params})
+    step.agent = agent
     return step
 
 
@@ -1674,110 +1687,162 @@ def fit_graph_path(name, fp, dev):
     return agent_path(agent)
 
 
-def graph_ab(name, step, fp, host_steps, window, curve_steps):
-    """One path's step captured as a CUDA graph against the same body
-    uncaptured (``graph=False``): host ms/step in turns (graph, uncaptured,
-    uncaptured, graph), device
-    busy, device events and host CUDA API calls per step, idle share, the
-    capture's seconds, K1/K2 per step, and a ``curve_steps`` learning curve
-    from one key graphed and twice uncaptured.  Fails unless the device
-    events per step agree within 0.4% (the profiler's spread between windows
-    of the same code; on a disagreement both are profiled once more, since
-    a window of ~10^5 records can come back short) and the graphed costs
-    and final params are within the spread of the two uncaptured runs or
-    1e-5 relative.  Returns the row."""
+def graph_ab(name, step, fp, host_steps, window, curve_steps, modes):
+    """One path's step captured as a CUDA graph and run K iterations per
+    host read (the default, "chunked") against one read per iteration
+    ("chunk=1"), and where ``modes`` holds "uncaptured" against the same
+    body uncaptured (``graph=False``): host ms/step in turns (each mode,
+    then back in reverse), device busy, the device's idle time inside one
+    replay, device events and host CUDA API calls per step, idle share, the
+    capture's seconds, K1/K2 per step; and from a
+    ``curve_steps`` learning curve from one key in each mode (uncaptured
+    twice), the host reads per call and the iterations run after every lane
+    stopped.  Fails unless the chunked curve and final params are bitwise
+    those of chunk=1 (the uncaptured ones: within the two uncaptured runs'
+    spread or 1e-5 relative), the device events per step agree within 0.4%
+    (the profiler's spread between windows of the same code; on a
+    disagreement all are profiled once more, since a window of ~10^5
+    records can come back short; ``profile_steps`` itself profiles again
+    a pair of windows that evidently lost records, and the row lists what
+    it refused), and K1/K2 are counted alike.  Returns the row."""
     from mcpilco_tpu_torch.control import trainer
     from mcpilco_tpu_torch.utils.profiling import GRAPH_BASE, host_ms, profile_steps
 
-    runner = lambda graph: lambda n: step(n, graph)
-    base = {True: GRAPH_BASE, False: 1}
-    prof, host = {}, {True: [], False: []}
+    runner = lambda m: lambda n: step(n, CHUNK_MODES[m][0], 1, CHUNK_MODES[m][1])
+    base = lambda m: GRAPH_BASE if CHUNK_MODES[m][0] else 1
+    prof, host = {}, {m: [] for m in modes}
     for turn in range(2):
-        for graph in ((True, False) if turn % 2 == 0 else (False, True)):
-            if graph in prof:
-                host[graph] += host_ms(runner(graph), host_steps, base[graph])
+        for m in (modes if turn % 2 == 0 else modes[::-1]):
+            if m in prof:
+                host[m] += host_ms(runner(m), host_steps, base(m))
             else:
-                prof[graph] = profile_steps(runner(graph), host_steps=host_steps,
-                                            window=window, base=base[graph])
-                host[graph].append(prof[graph]["host_ms"])
-    g, e = prof[True], prof[False]
-    if abs(g["events"] - e["events"]) > 0.004 * e["events"]:
-        print(f"  graph {name}: device events per step {g['events']:.1f} graphed against "
-              f"{e['events']:.1f} uncaptured; profiling both again", flush=True)
-        g, e = (profile_steps(runner(graph), host_steps=host_steps, window=window,
-                              base=base[graph]) for graph in (True, False))
-        host[True].append(g["host_ms"])
-        host[False].append(e["host_ms"])
-    kernel_steps = {k: sum(v for n, v in g["events_by_kernel"].items() if k in n)
-                    for k in ("k1_forward", "k2_backward_xstar")}
-    # device us per K1/K2 launch, graphed / uncaptured
-    kernel_us = {k: tuple(sum(t for n, t in p["us_by_kernel"].items() if k in n)
-                          / max(kernel_steps[k], 1) for p in (g, e)) for k in kernel_steps}
+                prof[m] = profile_steps(runner(m), host_steps=host_steps, window=window,
+                                        base=base(m))
+                host[m].append(prof[m]["host_ms"])
+    events = lambda: [prof[m]["events"] for m in modes]
+    spread = lambda: max(events()) - min(events()) > 0.004 * min(events())
+    if spread():
+        print(f"  graph {name}: device events per step {events()} ({modes}); profiling all "
+              f"again", flush=True)
+        for m in modes:
+            prof[m] = profile_steps(runner(m), host_steps=host_steps, window=window, base=base(m))
+            host[m].append(prof[m]["host_ms"])
+    kernel_steps = {m: {k: sum(v for n, v in prof[m]["events_by_kernel"].items() if k in n)
+                        for k in ("k1_forward", "k2_backward_xstar")} for m in modes}
+    # device us per K1/K2 launch in each mode
+    kernel_us = {m: {k: sum(t for n, t in prof[m]["us_by_kernel"].items() if k in n)
+                     / max(kernel_steps[m][k], 1) for k in kernel_steps[m]} for m in modes}
 
-    curves, launched = {}, {}
-    for label, graph in (("graph", True), ("uncaptured", False), ("uncaptured again", False)):
+    curves, launched, counts = {}, {}, {}
+    runs = [m for m in modes] + (["uncaptured again"] if "uncaptured" in modes else [])
+    for label in runs:
+        m = label.split(" ")[0]
         fp.reset_launches()
         trainer.reset_graph_counts()
-        curves[label] = step(curve_steps, graph, 2)
-        launched[label] = dict(fp.launches)
-        if graph:
-            counts = dict(trainer.graph_counts)
-    if counts["captures"] != 1 or counts["replays"] < curve_steps - GRAPH_BASE:
-        raise RuntimeError(f"{name}: the graphed curve did not replay one graph: {counts}")
+        curves[label] = step(curve_steps, CHUNK_MODES[m][0], 2, CHUNK_MODES[m][1])
+        launched[label], counts[label] = dict(fp.launches), dict(trainer.graph_counts)
+    for m in ("chunked", "chunk=1"):
+        c = counts[m]
+        if c["captures"] != 1 or c["replays"] < curve_steps - GRAPH_BASE:
+            raise RuntimeError(f"{name}: the {m} curve did not replay one graph: {c}")
     rel = lambda a, b: float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
     prel = lambda a, b: max(max_err(a[k], b[k]) / max(float(b[k].abs().max()), 1e-30)
                             for k in b)
-    (cg, pg), (ce, pe), (ce2, pe2) = curves.values()
-    gap, spread = (rel(cg, ce), prel(pg, pe)), (rel(ce2, ce), prel(pe2, pe))
-    bitwise = np.array_equal(cg, ce) and all(torch.equal(pg[k], pe[k]) for k in pe)
-    row = dict(host_graph=host[True], host_uncaptured=host[False], busy_graph=g["busy_ms"],
-               busy_uncaptured=e["busy_ms"], events_graph=g["events"],
-               events_uncaptured=e["events"], api_graph=g["api_calls"],
-               api_uncaptured=e["api_calls"], idle_graph=g["idle"], idle_uncaptured=e["idle"],
-               capture_s=counts["captures_s"],
-               k1_per_step=kernel_steps["k1_forward"],
-               k2_per_step=kernel_steps["k2_backward_xstar"],
-               k1_us=kernel_us["k1_forward"], k2_us=kernel_us["k2_backward_xstar"],
-               curve_gap=gap, curve_spread=spread, bitwise=bitwise,
-               launches_graph=launched["graph"], launches_uncaptured=launched["uncaptured"])
+    same = lambda a, b: np.array_equal(a[0], b[0]) and all(torch.equal(a[1][k], b[1][k])
+                                                           for k in b[1])
+    bitwise = same(curves["chunked"], curves["chunk=1"])
+    row = dict(modes=modes, host=host, capture_s=counts["chunked"]["captures_s"],
+               bitwise_across_chunks=bitwise, launches=launched,
+               reads_per_call={k: c["reads"] for k, c in counts.items()},
+               wasted={k: c["wasted"] for k, c in counts.items()},
+               k1_per_step=kernel_steps["chunked"]["k1_forward"],
+               k2_per_step=kernel_steps["chunked"]["k2_backward_xstar"], kernel_us=kernel_us,
+               profile_faults={m: prof[m]["profile_faults"] for m in modes},
+               **{f"{key}_{m}": prof[m][key] for m in modes
+                  for key in ("busy_ms", "gap_ms", "events", "api_calls", "idle")})
     api = lambda p: ", ".join(f"{k} {v:.0f}" for k, v in list(p["api_by_name"].items())[:3])
-    print(f"  graph {name}: host ms/step graphed {' / '.join(f'{v:.2f}' for v in host[True])}, "
-          f"uncaptured {' / '.join(f'{v:.2f}' for v in host[False])}; device busy "
-          f"{g['busy_ms']:.2f} / {e['busy_ms']:.2f} ms/step; device events per step "
-          f"{g['events']:.1f} / {e['events']:.1f}; host CUDA API calls per step "
-          f"{g['api_calls']:.1f} ({api(g)}) / {e['api_calls']:.1f} ({api(e)}); idle share "
-          f"{g['idle']:.3f} / {e['idle']:.3f}; capture + instantiate "
-          f"{row['capture_s']:.3f} s; K1/K2 per graphed step "
-          f"{kernel_steps['k1_forward']:.1f} / {kernel_steps['k2_backward_xstar']:.1f}, device us "
-          f"per launch graphed / uncaptured: K1 {kernel_us['k1_forward'][0]:.2f} / "
-          f"{kernel_us['k1_forward'][1]:.2f}, K2 {kernel_us['k2_backward_xstar'][0]:.2f} / "
-          f"{kernel_us['k2_backward_xstar'][1]:.2f}", flush=True)
-    print(f"  graph {name}: {curve_steps}-step curve graphed "
-          f"{' '.join(f'{v:.4f}' for v in np.ravel(cg)[:curve_steps])}; against uncaptured: "
-          f"costs {gap[0]:.3e}, params {gap[1]:.3e} relative (two uncaptured runs: "
-          f"{spread[0]:.3e}, {spread[1]:.3e}); {'bitwise equal' if bitwise else 'not bitwise'}; "
-          f"launches {launched['graph']} graphed, {launched['uncaptured']} uncaptured",
-          flush=True)
-    if abs(g["events"] - e["events"]) > 0.004 * e["events"]:
-        diff = {k: g["events_by_kernel"].get(k, 0.0) - e["events_by_kernel"].get(k, 0.0)
-                for k in g["events_by_kernel"].keys() | e["events_by_kernel"].keys()}
+    for m in modes:
+        p = prof[m]
+        print(f"  graph {name} [{m}]: host ms/step {' / '.join(f'{v:.2f}' for v in host[m])}; "
+              f"device busy {p['busy_ms']:.2f} ms/step, idle inside a replay "
+              f"{'-' if p['gap_ms'] is None else format(p['gap_ms'], '.2f')} ms "
+              f"(least of {p['replays_seen']}); device events per step {p['events']:.1f}; host CUDA "
+              f"API calls per step {p['api_calls']:.1f} ({api(p)}); idle share {p['idle']:.3f}; "
+              f"K1/K2 per step {kernel_steps[m]['k1_forward']:.1f} / "
+              f"{kernel_steps[m]['k2_backward_xstar']:.1f}, device us per launch "
+              f"{kernel_us[m]['k1_forward']:.2f} / {kernel_us[m]['k2_backward_xstar']:.2f}; curve "
+              f"of {curve_steps} steps: {counts[m]['reads']} host reads, {counts[m]['wasted']} "
+              f"iterations after the lanes stopped", flush=True)
+    cg = curves["chunked"][0]
+    print(f"  graph {name}: capture + instantiate {row['capture_s']:.3f} s; {curve_steps}-step "
+          f"curve chunked {' '.join(f'{v:.4f}' for v in np.ravel(cg)[:curve_steps])}; chunked "
+          f"against chunk=1 {'bitwise equal' if bitwise else 'NOT bitwise equal'}; launches "
+          f"{launched}", flush=True)
+    if not bitwise:
+        raise RuntimeError(f"{name}: the chunked curve is not bitwise that of chunk=1: "
+                           f"{curves['chunked'][0]} against {curves['chunk=1'][0]}")
+    if "uncaptured" in modes:
+        (cg, pg), (ce, pe), (ce2, pe2) = (curves[k] for k in ("chunked", "uncaptured",
+                                                             "uncaptured again"))
+        gap, spread_u = (rel(cg, ce), prel(pg, pe)), (rel(ce2, ce), prel(pe2, pe))
+        row.update(curve_gap_uncaptured=gap, curve_spread_uncaptured=spread_u)
+        print(f"  graph {name}: graphed against uncaptured: costs {gap[0]:.3e}, params "
+              f"{gap[1]:.3e} relative (two uncaptured runs: {spread_u[0]:.3e}, "
+              f"{spread_u[1]:.3e}); {'bitwise equal' if same(curves['chunked'], curves['uncaptured']) else 'not bitwise'}",
+              flush=True)
+        if gap[0] > max(spread_u[0], 1e-5) or gap[1] > max(spread_u[1], 1e-5):
+            raise RuntimeError(f"{name}: the graphed curve left the uncaptured one: gap {gap}, "
+                               f"spread {spread_u}")
+    if spread():
+        a, b = (max(modes, key=lambda m: prof[m]["events"]),
+                min(modes, key=lambda m: prof[m]["events"]))
+        ea, eb = prof[a]["events_by_kernel"], prof[b]["events_by_kernel"]
+        diff = {k: ea.get(k, 0.0) - eb.get(k, 0.0) for k in ea.keys() | eb.keys()}
         top = sorted(((k, v) for k, v in diff.items() if v), key=lambda kv: -abs(kv[1]))[:6]
-        raise RuntimeError(f"{name}: the graphed step ran {g['events']} device events per step "
-                           f"against {e['events']} uncaptured; by kernel {top}")
-    if gap[0] > max(spread[0], 1e-5) or gap[1] > max(spread[1], 1e-5):
-        raise RuntimeError(f"{name}: the graphed curve left the uncaptured one: gap {gap}, "
-                           f"spread {spread}")
-    if launched["graph"] != launched["uncaptured"]:
-        raise RuntimeError(f"{name}: K1/K2 counted {launched['graph']} graphed against "
-                           f"{launched['uncaptured']} uncaptured")
+        raise RuntimeError(f"{name}: device events per step {events()} ({modes}); {a} - {b} by "
+                           f"kernel {top}")
+    if any(launched[k] != launched["chunked"] for k in launched):
+        raise RuntimeError(f"{name}: K1/K2 counted differently across the modes: {launched}")
     return row
 
 
+def exit_waste(step, curve_steps=10):
+    """The flagship's optimizer made to exit at step 2 (lr0 at lr_min, every
+    step a plateau step), chunked and with chunk=1: the iterations run
+    after the lane stopped (at most ``POLL_LAG - 1``) and the results
+    bitwise equal.  Returns the chunked run's counts."""
+    from mcpilco_tpu_torch.control import trainer
+
+    agent = step.agent
+    opt = agent.optimizer
+    agent.optimizer = dataclasses.replace(opt, min_diff_cost=1e9, num_min_diff_cost=3,
+                                          min_step=0.0, lr_min=0.01)
+    try:
+        out, counts = {}, {}
+        for m in ("chunked", "chunk=1"):
+            trainer.reset_graph_counts()
+            out[m] = step(curve_steps, True, 3, CHUNK_MODES[m][1])
+            counts[m] = dict(trainer.graph_counts)
+    finally:
+        agent.optimizer = opt
+    c = counts["chunked"]
+    print(f"  graph flagship, made to exit at step 2 of {curve_steps}: chunked {c['reads']} host "
+          f"reads, {c['replays'] + c['uncaptured']} iterations, {c['wasted']} after the exit "
+          f"(chunk=1: {counts['chunk=1']['reads']} reads, {counts['chunk=1']['wasted']} after)",
+          flush=True)
+    if len(out["chunked"][0]) != 3 or not np.array_equal(out["chunked"][0], out["chunk=1"][0]):
+        raise RuntimeError(f"the forced exit: costs {out}")
+    if c["wasted"] > trainer.POLL_LAG - 1 or counts["chunk=1"]["wasted"]:
+        raise RuntimeError(f"iterations after the exit: {counts}")
+    return c
+
+
 def graph_phase(fp, dev):
-    """Phase 15: every path of ``GRAPH_LABELS`` graphed against uncaptured
-    (``graph_ab``), then the flagship's reserved memory over three graphed
-    calls (each frees its graph and pool: no growth).  Prints the rows as
-    one JSON line; returns them."""
+    """Phase 15: every path of ``GRAPH_LABELS`` chunked against chunk=1
+    (``graph_ab``; the flagship against uncaptured too), the flagship made
+    to exit mid-chunk (``exit_waste``), then the flagship's reserved memory
+    over three graphed calls (each frees its graph and pool: no growth).
+    Prints the rows as one JSON line; returns them."""
     from mcpilco_tpu_torch.utils.profiling import GRAPH_BASE
 
     rows = {}
@@ -1786,7 +1851,10 @@ def graph_phase(fp, dev):
         if name not in GRAPH_PATHS:
             GRAPH_PATHS[name] = fit_graph_path(name, fp, dev)
         print(f"  ({GRAPH_LABELS[name]}):", flush=True)
-        rows[name] = graph_ab(name, GRAPH_PATHS[name], fp, *GRAPH_DEPTH[name])
+        modes = ["chunked", "chunk=1"] + (["uncaptured"] if name == "flagship" else [])
+        rows[name] = graph_ab(name, GRAPH_PATHS[name], fp, *GRAPH_DEPTH[name], modes)
+        if name == "flagship":
+            rows[name]["exit"] = exit_waste(GRAPH_PATHS[name])
         print(f"  ({name}) done in {time.perf_counter() - t0:.1f} s", flush=True)
     reserved = []
     for _ in range(3):
@@ -2046,7 +2114,7 @@ def main():
     if 15 in wanted:
         t0 = time.perf_counter()
         graph_phase(fp, dev)
-        phase("15 graph: the optimizer step graphed against uncaptured on five paths", t0)
+        phase("15 loop: K iterations per host read against one, on five paths", t0)
 
     print(smi, flush=True)  # again beside the results, for logs that keep only the end
     if rec is None or wanted != set(range(2, 16)):

@@ -151,7 +151,9 @@ class RolloutNoise(NamedTuple):
     """The random numbers of one rollout.
 
     state: [T-1, P, G] standard normals of the next-state draws;
-    keep:  [T, P, num_basis] dropout keep-masks of the policy, or None;
+    keep:  [T, P, num_basis] dropout keep-masks of the policy, or None
+           (the policy optimizer's buffers hold the draw's uniforms here
+           and form the mask on the device: ``draw_noise(keep_uniforms=)``);
     init:  [P, ds] base draws of the initial particles
            (:meth:`InitialStateDistribution.draw`), or None (read by the
            policy optimizer, not by ``simulate``);
@@ -257,16 +259,20 @@ class RolloutEngine:
         return torch.clamp(mean, -lim, lim), torch.minimum(var, lim * lim)
 
     def draw_noise(self, key, num_particles: int, horizon: int, p_dropout, device,
-                   dtype=torch.float32, init_dist=None) -> RolloutNoise:
+                   dtype=torch.float32, init_dist=None, keep_uniforms=False) -> RolloutNoise:
         """All random numbers of one rollout, one draw per stream, and with
         ``init_dist`` (an :class:`InitialStateDistribution`) those of its
         initial particles (``init``, ``init_idx``).  A list of lane keys (and
         ``p_dropout`` one rate per lane, or one for all) draws every lane from
-        its own generators and stacks the lanes."""
+        its own generators and stacks the lanes.  ``keep_uniforms``: ``keep``
+        holds the dropout draw's uniforms instead of its mask (the mask at
+        rate p is ``keep < max(1 - p, 1e-6)``), so that the rate can be
+        chosen after the draw."""
         if isinstance(key, list):
             rates = p_dropout if isinstance(p_dropout, (list, tuple)) else [p_dropout] * len(key)
             return stack_lanes([self.draw_noise(k, num_particles, horizon, p, device, dtype,
-                                                init_dist) for k, p in zip(key, rates)])
+                                                init_dist, keep_uniforms)
+                                for k, p in zip(key, rates)])
 
         def normals(tag, width):
             return torch.randn((horizon - 1, num_particles, width), dtype=dtype, device=device,
@@ -274,10 +280,10 @@ class RolloutEngine:
 
         keep = None
         if p_dropout > 0:
-            keep = self.policy.dropout_keep(
-                prng.stream(key, prng.STREAM_DROPOUT),
-                (horizon, num_particles, self.policy.num_basis), p_dropout, device,
-            )
+            args = (prng.stream(key, prng.STREAM_DROPOUT),
+                    (horizon, num_particles, self.policy.num_basis))
+            keep = (self.policy.dropout_uniforms(*args, device) if keep_uniforms
+                    else self.policy.dropout_keep(*args, p_dropout, device))
         meas = None
         if self.sensors is not None:
             meas = normals(prng.STREAM_MEAS_NOISE, len(self.sensors.pos_indices))

@@ -267,10 +267,14 @@ class SumOfGaussians(PolicyBase):
     def _policy_input(self, states, t):
         return states
 
+    def dropout_uniforms(self, key, shape, device):
+        """The uniforms of one dropout draw: a feature is kept where its
+        uniform is below the keep-probability."""
+        return torch.rand(shape, generator=prng.generator(key, device), device=device)
+
     def dropout_keep(self, key, shape, p_dropout, device):
         """The Bernoulli keep-mask of one dropout draw."""
-        gen = prng.generator(key, device)
-        return torch.rand(shape, generator=gen, device=device) < max(1.0 - p_dropout, 1e-6)
+        return self.dropout_uniforms(key, shape, device) < max(1.0 - p_dropout, 1e-6)
 
     def apply(self, params, states, t, key=None, p_dropout=0.0, keep=None):
         """``p_dropout`` is one rate, or a tensor [L] of one rate per lane,

@@ -126,9 +126,12 @@ class Problem:
 
 
 def jax_rollout_noise(key, P, T, G, num_basis, p_dropout, init_dim=None, n_pos=None,
-                      dtype=jnp.float32):
+                      dtype=jnp.float32, keep_uniforms=False):
     """The draws of one JAX rollout from ``key``, as a port RolloutNoise;
-    ``n_pos`` adds the sensor chain's position-noise draws."""
+    ``n_pos`` adds the sensor chain's position-noise draws; with
+    ``keep_uniforms`` ``keep`` holds the uniforms under the dropout masks
+    (``jax.random.bernoulli(k, q, shape)`` is ``uniform(k, shape) < q``),
+    which give the mask at any rate."""
 
     def normals(tag, width):
         return torch.as_tensor(np.stack([
@@ -137,7 +140,13 @@ def jax_rollout_noise(key, P, T, G, num_basis, p_dropout, init_dim=None, n_pos=N
         ]))
 
     keep = None
-    if p_dropout > 0:
+    if keep_uniforms:
+        keep = torch.as_tensor(np.stack([
+            np.asarray(jax.random.uniform(
+                jprng.stream(jprng.fold(key, t), jprng.STREAM_DROPOUT), (P, num_basis)))
+            for t in range(T)
+        ]))
+    elif p_dropout > 0:
         p = jnp.asarray(p_dropout, dtype)
         keep = torch.as_tensor(np.stack([
             np.asarray(jax.random.bernoulli(

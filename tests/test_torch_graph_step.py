@@ -2,7 +2,8 @@
 (``control/trainer.py``): on CUDA the body is captured as a CUDA graph; on
 the CPU the same body runs uncaptured, so these tests hold the body itself.
 
-(a) The body-based ``optimize`` against the JAX package's compiled loop
+(a) The body-based ``optimize`` (one host read per iteration, and one per
+    3) against the JAX package's compiled loop
     (``_optimize_chunk``) at the sizes of tests/test_torch_slice.py (P=16,
     horizon 10, 20 basis, SE+P(2)), the JAX draws handed to the port, for 5
     steps with a monitor whose plateau fires at step 2: lr halves, the Adam
@@ -11,8 +12,10 @@ the CPU the same body runs uncaptured, so these tests hold the body itself.
     from JAX's restart draw).  Costs rtol 1e-3, params atol 1e-5, as in
     tests/test_torch_slice.py (two frameworks' float32 rounding through 10
     closed-loop steps; an Adam step moves a leaf by ~lr * sign(grad)).
-(b) The body draws no random number, (c) builds no tensor from host data
-    and reads nothing back, on the flagship, 4PMS, Furuta semiparametric and
+(b) The body (the rollout, Adam, the monitor and the lane selection)
+    draws no random number, (c) builds no tensor from host data and reads
+    nothing back, run one and three iterations per host read, on the
+    flagship, 4PMS, Furuta semiparametric and
     UR5 (remat) paths, the fused predict where the path has one: after the
     warm-up iterations (which may fill the per-device constant caches, as
     they do before a capture) every further body runs with
@@ -68,8 +71,9 @@ def fitted():
     return prob, params, post
 
 
+@pytest.mark.parametrize("chunk", [1, 3])
 @pytest.mark.parametrize("lanes", [1, 2])
-def test_body_optimize_matches_jax_compiled_loop(fitted, lanes):
+def test_body_optimize_matches_jax_compiled_loop(fitted, lanes, chunk):
     prob, params, post = fitted
     pol = prob.policy_params()
     # |dcr| stays far below thr = 1, so the plateau gate opens at the first
@@ -102,7 +106,7 @@ def test_body_optimize_matches_jax_compiled_loop(fitted, lanes):
 
     jres = jopt.optimize(jkey, pol, params, post, 5, 0.01, P_DROP)
     tres, metric = topt.optimize_lanes([tkey] * lanes, stacked, t_gp, t_post, 5, 0.01, P_DROP,
-                                       rids=list(range(lanes)), noise_fn=noise_fn)
+                                       rids=list(range(lanes)), noise_fn=noise_fn, chunk=chunk)
     winner = 0
     if lanes > 1:
         np.testing.assert_allclose(metric, np.asarray(jres.restart_costs), rtol=1e-3)
@@ -178,9 +182,10 @@ def _refuse_host_data(real):
     return make
 
 
+@pytest.mark.parametrize("chunk", [1, 3])
 @pytest.mark.parametrize("check", ["random", "host_data"])
 @pytest.mark.parametrize("path", ["flagship", "4pms", "furuta", "ur5"])
-def test_body_stays_on_the_device(path, check, monkeypatch):
+def test_body_stays_on_the_device(path, check, chunk, monkeypatch):
     agent, gp_params, post = _agent(path)
     fused = agent.gp._fused_structure() is not None
     twins = {"fwd": 0, "bwd": 0}
@@ -219,7 +224,7 @@ def test_body_stays_on_the_device(path, check, monkeypatch):
 
     monkeypatch.setattr(ttrainer.PolicyOptimizer, "_body", guarded)
     res = agent.optimizer.optimize(tprng.root_key(3), agent.policy_params, gp_params, post, 4,
-                                   0.01, 0.25)
+                                   0.01, 0.25, chunk=chunk)
     assert res.steps_done == 4 and checked.count(True) >= 2
     assert np.all(np.isfinite(res.cost_history[:4].numpy()))
     # K1 in the forward and K2 in the backward of every rollout step

@@ -120,10 +120,14 @@ def test_nan_lane_retries_and_reinits_alone(setup, monkeypatch):
         [prng.root_key(5)] * 2, {k: torch.stack([v] * 2) for k, v in pol.items()}, gp_params,
         post, num_opt_steps=6, lr0=0.02, p_dropout0=0.1, rids=[0, 0])
     # lane 0 advanced every iteration; lane 1 logged a re-init every 3rd
-    # (two re-samples, then the give-up) and went on alone once lane 0 was done
+    # NaN (two re-samples, then the give-up) and went on alone once lane 0
+    # was done.  Iterations: the first chunk's 6 (lane 1 halted in its
+    # first, its re-samples 2 more); then per step of lane 1 its NaN, the
+    # iteration the host issued before it saw the halt (none in the last
+    # step's chunk, of one step) and each re-sample, a chunk of its own
     assert res[0].steps_done == res[1].steps_done == 6
     assert res[0].reinit_count == 0 and res[1].reinit_count == 6
-    assert len(calls) == 18 and not np.isfinite(metric[1])
+    assert len(calls) == 6 + 2 + 4 * 4 + 3 and not np.isfinite(metric[1])
     assert np.all(res[1].cost_history.numpy()[1:6] == 0.0)
     np.testing.assert_allclose(res[0].cost_history.numpy()[:6], ref.cost_history.numpy()[:6],
                                rtol=1e-3)

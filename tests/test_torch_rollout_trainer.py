@@ -7,7 +7,9 @@
   BPTT through 10 closed-loop steps of GP dynamics and policy compounds the
   float32 rounding of two frameworks that sum in different orders, and the
   gradient is a sum over particles of terms that partly cancel.
-- The convergence monitor and plateau logic run against scripted costs.
+- The convergence monitor and plateau logic (``PolicyOptimizer.
+  monitor_update``, float32 on the device as the JAX loop carries it) run
+  against scripted costs.
 """
 
 import jax
@@ -19,7 +21,7 @@ from _torch_parity import Problem, collect_data, jax_rollout_noise, padded
 from mcpilco_tpu.control import rollout as jroll
 from mcpilco_tpu.models import gp as jgp
 from mcpilco_tpu_torch.control import rollout as troll
-from mcpilco_tpu_torch.control.trainer import ConvergenceMonitor
+from mcpilco_tpu_torch.control.trainer import Monitor, PolicyOptimizer
 from mcpilco_tpu_torch.models import gp as tgp
 from mcpilco_tpu_torch.utils.convert import to_torch
 
@@ -98,30 +100,50 @@ def test_clip_bptt_matches_jax():
 
 
 def _monitor(**kw):
+    """A one-lane device monitor and the optimizer whose config drives it."""
     base = dict(alpha=0.99, num_min_diff_cost=5, min_step=3.0, lr_reduction_ratio=0.5,
                 lr_min=0.0025, p_drop_reduction=0.125, thr_floor=0.01, lr=0.01, p_drop=0.25,
                 thr=0.08)
     base.update(kw)
-    return ConvergenceMonitor(**base)
+    opt = PolicyOptimizer(engine=None, cost=None, init_dist=None, num_particles=1, horizon=1,
+                          max_opt_steps=1, alpha_diff_cost=base["alpha"],
+                          min_diff_cost=base["thr"], num_min_diff_cost=base["num_min_diff_cost"],
+                          min_step=base["min_step"], lr_reduction_ratio=base["lr_reduction_ratio"],
+                          lr_min=base["lr_min"], p_drop_reduction=base["p_drop_reduction"],
+                          thr_floor=base["thr_floor"])
+    f32 = lambda v: torch.tensor([v], dtype=torch.float32)
+    mon = Monitor(lr=f32(base["lr"]), p_drop=f32(base["p_drop"]), thr=f32(base["thr"]),
+                  gate_step=f32(base["min_step"]), consec=torch.zeros(1, dtype=torch.int32),
+                  es1=f32(0.0), es2=f32(0.0), dcr=f32(0.0))
+    return opt, mon
+
+
+def _update(opt, mon, step, dc):
+    mon, reduce_lr, exit_now = opt.monitor_update(
+        mon, torch.tensor([step], dtype=torch.int32), torch.tensor([dc], dtype=torch.float32))
+    return mon, bool(reduce_lr[0]), bool(exit_now[0])
 
 
 def test_monitor_plateau_schedule_on_flat_costs():
     """Flat costs: dcr stays 0, so every step counts as a plateau step; the
     lr halves once the gate passes, then again num_min_diff_cost steps
-    later, and the loop exits at lr_min."""
-    mon = _monitor()
+    later, and the loop exits at lr_min.  The schedule's values are float32
+    (the halvings are exact)."""
+    opt, mon = _monitor()
     events = []
     for step in range(40):
-        reduce_lr, exit_now = mon.update(step, 0.0)
+        mon, reduce_lr, exit_now = _update(opt, mon, step, 0.0)
         if reduce_lr or exit_now:
-            events.append((step, reduce_lr, exit_now, mon.lr, mon.p_drop, mon.thr))
+            events.append((step, reduce_lr, exit_now, float(mon.lr[0]), float(mon.p_drop[0]),
+                           float(mon.thr[0])))
         if exit_now:
             break
+    f32 = lambda v: float(np.float32(v))
     # first reduction: consec reaches 5 at step 4, the gate needs step > 3
-    assert events[0] == (4, True, False, 0.005, 0.125, 0.04)
+    assert events[0] == (4, True, False, f32(0.005), 0.125, f32(0.04))
     # then the gate moves to step 4 + 5 and consec restarts: consec is 6 at
     # step 10, the first step past the gate; lr reaches lr_min there
-    assert events[1] == (10, True, False, 0.0025, 0.0, 0.02)
+    assert events[1] == (10, True, False, f32(0.0025), 0.0, f32(0.02))
     # at lr_min the next plateau (gate at 15) ends the loop
     assert events[2][:3] == (16, False, True)
     assert len(events) == 3
@@ -129,18 +151,24 @@ def test_monitor_plateau_schedule_on_flat_costs():
 
 def test_monitor_matches_reference_recursion_on_noisy_costs():
     """The monitor's smoothed statistics follow the reference recursion
-    (MC_PILCO.py:507-519) step by step, and falling costs never plateau."""
+    (MC_PILCO.py:507-519) step by step, in float32 as the JAX loop computes
+    it (mcpilco_tpu/control/trainer.py:663-671), and falling costs never
+    plateau."""
     rng = np.random.default_rng(0)
-    costs = 50.0 - 0.2 * np.arange(60) + 0.05 * rng.standard_normal(60)
-    mon = _monitor(num_min_diff_cost=200)
-    es1 = es2 = dcr = 0.0
+    costs = (50.0 - 0.2 * np.arange(60) + 0.05 * rng.standard_normal(60)).astype(np.float32)
+    opt, mon = _monitor(num_min_diff_cost=200)
+    f32 = np.float32
+    es1 = es2 = dcr = f32(0.0)
     prev = costs[0]
     for step, c in enumerate(costs[1:]):
         dc = c - prev
-        es2 = 0.99 * (es2 + 0.01 * (dc - es1) ** 2)
-        es1 = 0.99 * es1 + 0.01 * dc
-        dcr = 0.99 * dcr + 0.01 * es1 / np.sqrt(es2 + 1.1754943508222875e-38)
-        assert mon.update(step, dc) == (False, False)
-        np.testing.assert_allclose([mon.es1, mon.es2, mon.dcr], [es1, es2, dcr], rtol=1e-12)
+        es2 = 0.99 * (es2 + (1 - 0.99) * (dc - es1) ** 2)
+        es1 = 0.99 * es1 + (1 - 0.99) * dc
+        dcr = 0.99 * dcr + (1 - 0.99) * (es1 / np.sqrt(es2 + np.finfo(f32).tiny))
+        mon, reduce_lr, exit_now = _update(opt, mon, step, dc)
+        assert (reduce_lr, exit_now) == (False, False)
+        got = [float(mon.es1[0]), float(mon.es2[0]), float(mon.dcr[0])]
+        assert {type(v) for v in (es1, es2, dcr)} == {f32}
+        np.testing.assert_allclose(got, [es1, es2, dcr], rtol=1e-12)
         prev = c
-    assert mon.dcr < -0.08 and mon.consec == 0 and mon.lr == 0.01
+    assert mon.dcr[0] < -0.08 and int(mon.consec[0]) == 0 and float(mon.lr[0]) == f32(0.01)

@@ -3,6 +3,7 @@ CPU: ``--help`` of each, a smoke training run whose checkpoints feed the
 replay, and the repeat protocol sequential and farmed, whose summary has
 the keys of the JAX package's ``scripts/repeat.py``."""
 
+import collections
 import contextlib
 import importlib
 import io
@@ -135,14 +136,99 @@ def test_repeat_farm_takes(scenario, tmp_path, monkeypatch):
 
 
 def test_profile_opt_on_the_cpu(tmp_path, capsys):
-    """The uncaptured step's host time only: no graph and no device figure
-    without a card."""
+    """The uncaptured step's host time only, at each swept number of
+    iterations per host read: no graph and no device figure without a
+    card."""
     out = tmp_path / "profile.json"
     rc = profile_opt.main(["--smoke", "--device", "cpu", "--steps", "2", "--turns", "1",
-                           "--epochs", "30", "--out", str(out)])
+                           "--epochs", "30", "--chunk", "1,2", "--out", str(out)])
     assert rc == 0
     report = json.loads(out.read_text())
-    assert report["device"] == "cpu" and list(report["modes"]) == ["uncaptured"]
-    row = report["modes"]["uncaptured"]
-    assert len(row["host_ms"]) == 1 and row["host_ms"][0] > 0 and row["busy_ms"] is None
+    assert report["device"] == "cpu"
+    assert list(report["modes"]) == ["chunk=1", "chunk=2", "uncaptured"]
+    # a call of 1 + 2 steps: one read per step, per two, per call
+    assert [r["reads_per_call"] for r in report["modes"].values()] == [3, 2, 1]
+    for row in report["modes"].values():
+        assert len(row["host_ms"]) == 1 and row["host_ms"][0] > 0 and row["busy_ms"] is None
     assert "not measured" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("more, fault", [
+    (dict(us=300.0, replays=[1000] * 3, replays_run=3), None),
+    (dict(us=100.0, replays=[1000] * 3, replays_run=3), "device us"),
+    (dict(us=300.0, replays=[1000, 600, 1000], replays_run=3), "graph replays of [600, 1000]"),
+    (dict(us=300.0, replays=[1000] * 2, replays_run=3), "2 graph replays seen of 3 run"),
+    (dict(us=300.0, replays=[], replays_run=0), None),
+], ids=["whole", "no_more_device_time", "short_replay", "replay_missing", "uncaptured"])
+def test_window_fault_finds_a_window_short_of_records(more, fault):
+    """profile_steps differences run(b) and a longer run: a pair whose
+    longer window lost records (the profiler returns one now and then) is
+    named, and profiled again."""
+    from mcpilco_tpu_torch.utils import profiling
+
+    base = dict(us=100.0, replays=[1000] if more["replays"] else [],
+                replays_run=1 if more["replays_run"] else 0)
+    got = profiling.window_fault(base, more)
+    assert got == fault if fault is None else fault in got
+
+
+def test_profile_steps_counts_the_steps_run_and_profiles_a_short_window_again(monkeypatch,
+                                                                            capsys):
+    """The device figures are over the steps the longer run added (here a
+    call capped at 4 steps, one more than the base run's 3), and a pair
+    whose longer window lost half a replay's records is profiled again.
+    The profiler is replaced by records made here: each replay 1,000
+    kernels of 1 us, the uncaptured warm-up 50."""
+    import torch.profiler
+    from mcpilco_tpu_torch.control import trainer
+    from mcpilco_tpu_torch.utils import profiling
+
+    state = dict(n=0, profiled=0)
+
+    class Profile(contextlib.nullcontext):
+        def __init__(self, *args, **kwargs):
+            super().__init__()
+            state["profiled"] += 1
+
+    def run(n):
+        state["n"] = min(n, 4)
+        trainer.graph_counts["uncaptured"] += 1
+        trainer.graph_counts["replays"] += state["n"] - 1
+        trainer.graph_counts["replays_s"] += 0.02 * (state["n"] - 1)
+
+    def records():
+        out = [(10 ** 6 + i, 0, 1000) for i in range(50)]
+        for r in range(state["n"] - 1):
+            size = 500 if state["profiled"] == 2 and r == 1 else 1000
+            out += [(r, 10 ** 7 * r + 2000 * i, 10 ** 7 * r + 2000 * i + 1000)
+                    for i in range(size)]
+        return out
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(profiling, "device_records", lambda prof: [("k", 1.0)] * len(records()))
+    monkeypatch.setattr(profiling, "_replay_records", lambda prof: records())
+    monkeypatch.setattr(profiling, "api_calls",
+                        lambda prof: collections.Counter(cudaGraphLaunch=state["n"] - 1))
+    p = profiling.profile_steps(run, host_steps=3, window=5, base=3)
+    assert p["profile_faults"] == ["graph replays of [500, 1000] records"]
+    assert "window pair refused" in capsys.readouterr().out
+    assert state["profiled"] == 4 and p["steps"] == 1
+    assert p["events"] == 1000 and p["api_calls"] == 1 and p["busy_ms"] == 1.0
+    assert p["host_ms"] == pytest.approx(20.0) and p["replays_seen"] == 3
+    assert p["gap_ms"] == pytest.approx(1.0 * 999 / 1e3)
+
+
+def test_replay_gaps_group_a_replays_kernels_by_their_launch():
+    """The idle time inside each graph replay: records grouped by the
+    correlation id of their launch, groups of fewer than REPLAY_MIN records
+    (kernels issued one by one) left out, overlapping records counted
+    once."""
+    from mcpilco_tpu_torch.utils import profiling
+
+    n = profiling.REPLAY_MIN
+    a = [(7, 1000 * i, 1000 * i + 800) for i in range(n)]  # 200 ns apart
+    b = [(8, 10 ** 6 + 2000 * i, 10 ** 6 + 2000 * i + 1000) for i in range(n)]
+    b.append((8, 10 ** 6 + 500, 10 ** 6 + 1500))  # overlaps the first two
+    eager = [(100 + i, 5000 * i, 5000 * i + 10) for i in range(n)]
+    gaps = profiling.replay_gaps(a + b + eager)
+    np.testing.assert_allclose(gaps, [0.2 * (n - 1), 1.0 * (n - 1) - 0.5])
