@@ -42,7 +42,11 @@ flagship, against the uncaptured body (``graph=False``).
    counts;
 7. the seed farm at full width: ``SeedFarm`` over 4 flagship seeds (P=400,
    horizon 60, SE+P(2), SOD, 500-epoch fits), 1 exploration and 1 trial
-   of 10 steps, K1/K2 launched with 4 lanes; then the farm's optimizer
+   of 10 steps, K1/K2 launched with 4 lanes; its ``improve_policy`` again
+   with ``chunk_steps_override=4`` (the 9 steps after the uncaptured first
+   iteration in chunks of 4, 4 and 1) against the default chunks: costs,
+   steps and params bitwise equal, host reads 4 against 2, a
+   ``progress_cb`` tick per read, K1/K2 at L=4; then the farm's optimizer
    step profiled beside one seed's (host ms/step over 2 steps, device
    busy, device events per step, idle share), and one seed's 10-step cost
    curve farmed against the same seed trained alone (within 0.1% relative);
@@ -52,12 +56,12 @@ flagship, against the uncaptured body (``graph=False``).
    QUBE-like plant (N=300, M=320, exact GP), a 500-epoch fit of the
    semiparametric Sum(SE, Linear) model (the SE model below: 1501), its
    posterior against float64 on the plain path, 10 optimizer steps at P=400
-   and horizon 150 (its step profile is phase 15's); then the
-   same on the same two trials with ``semiparametric=False`` (SE over 12
-   dims, K1/K2 in their wide path), 2 steps timed as the host window of the
-   step profile (host ms/step, then device busy, device events per step and
-   idle share over 2 profiled steps), the fitted posterior through K1
-   against float64 and the learning-curve check;
+   and horizon 150 (profiled in phase 15 with ``--full-profile``); then
+   the same on the same two trials with ``semiparametric=False`` (SE over 12
+   dims, K1/K2 in their wide path), 10 steps timed (with ``--full-profile``
+   2, as the host window of the step profile: host ms/step, then device
+   busy, device events per step and idle share over 2 profiled steps), the
+   fitted posterior through K1 against float64 and the learning-curve check;
 10. the Furuta main path: ``furuta.build`` then ``reinforce`` for 1 trial
     of 3 steps (300-epoch fit; no kernel structure: 0 launches), and the
     ``semiparametric=False`` variant the same (both kernels);
@@ -78,7 +82,13 @@ flagship, against the uncaptured body (``graph=False``).
     resumed, trial 2 trained, its cost gap to the unbroken run's trial 2;
     (c) ``scripts.apply_policy`` on ``complete_trial1``, 5 plant runs and 400
     particles x 60 steps on the model; (d) ``scripts.repeat --farm`` over 2
-    seeds of 1 trial;
+    seeds of 1 trial; (e) ``scripts.repeat --no-farm --jobs 2 --trials 1
+    --extra-flag=--opt-steps=5 --extra-flag=--gp-epochs=300`` over 2 flagship
+    seeds at full width (depth cut only), each a subprocess of
+    ``train_cartpole`` on the card with its ``stdout.log``; (f) after
+    phase 14, ``scripts.summarize_results --json`` over the summaries of
+    (d), (e) and phase 14 (d): their three rows beside the JAX package's
+    flagship record;
 13. UR5 from the recorded trials (``mcpilco_tpu_torch/envs/assets/
     ur5_pd_trials.npz``; the card's machine has no ``mujoco``, so the
     MuJoCo plant is built and never rolled out): ``ur5.build`` at full width
@@ -86,12 +96,14 @@ flagship, against the uncaptured body (``graph=False``).
     trials in through ``add_external_trial``, a 1001-epoch fit (N=400,
     M=448); the default Sum(SE, MPK1) model on the plain predict: its
     posterior against float64, one rollout + backward with remat on and off
-    (gradients bitwise, peak memory; its step profile is phase 15's); then
+    (gradients bitwise, peak memory; its step profile: phase 15 with
+    ``--full-profile``); then
     ``poly_degree=2`` on the same trials (K1/K2 in their wide
     path at D=24 G=6 P=200 M=448) with the cost curriculum (the plateau
     rescue's configuration: the fixed cost starts this seed on its
-    saturated plateau): posterior through K1 against float64, the
-    step profile, K1/K2 device time on the fitted posterior; then the HIL
+    saturated plateau): posterior through K1 against float64, 3 steps timed
+    (with ``--full-profile`` the step profile), K1/K2 device time on the
+    fitted posterior; then the HIL
     main path: ``improve_policy`` of 3 steps (the kernel side of the
     learning curve against ``_predict_plain``), ``export_policy_csv`` and a
     checkpoint round trip restored bitwise;
@@ -103,7 +115,8 @@ flagship, against the uncaptured body (``graph=False``).
     lane axis of size 1 (equal device events), one seed's 5-step curve
     farmed against alone (within 5e-3 relative); (b) Furuta's shipped
     semiparametric model over 4 seeds (1 trial of 3 steps, no kernel
-    launch), its step profile and curve; (c) the host-plant collection
+    launch), its curve (with ``--full-profile`` its step profile beside one
+    seed's); (c) the host-plant collection
     (``SeedFarm._collect_host``) with the flagship's ODE plant behind a
     host plant's ``rollout()`` (the card's machine has no ``mujoco``), 2
     seeds of 3 steps, training pairs against the device plant's farm within
@@ -116,10 +129,12 @@ flagship, against the uncaptured body (``graph=False``).
     with remat of phase 13, each fitted there, or here with 500 epochs when
     its phase did not run), the graphed optimizer step at its default
     iterations per host read against one read per iteration (``chunk=1``),
-    and on the flagship against the uncaptured body too: host ms/step in
-    turns, device busy, the device's idle time inside one replay, device
-    events and host CUDA API calls per step, idle share, capture +
-    instantiate seconds, K1/K2 per step, and a learning curve in each mode
+    and on the flagship against the uncaptured body too; the flagship's
+    chunked and chunk=1 steps (with ``--full-profile`` every mode of every
+    path) profiled: host ms/step in turns, device busy, the device's idle
+    time inside one replay, device events and host CUDA API calls per step,
+    idle share, K1/K2 per step; on every path capture + instantiate seconds
+    and a learning curve in each mode
     (10 steps; 3 for Furuta and UR5) with its host reads and the iterations
     run after the lanes stopped: the chunked curve and params bitwise those
     of chunk=1 (the uncaptured ones within two uncaptured runs' spread or
@@ -158,6 +173,13 @@ optimizer step in phase 14).
 runs phase 1 and only the listed phases (the kernels line needs all;
 ``--phases 15`` alone fits its five paths itself).
 
+    python3 chip_smoke.py --full-profile
+
+also profiles the steps that the default run only times or runs: phase 9's
+Furuta SE step, phase 13's UR5 K1/K2 step, phase 14 (b)'s Furuta farm beside
+one seed, and every mode of every path of phase 15 (the default profiles
+the flagship's chunked and chunk=1 steps there); it adds ~4 minutes.
+
     python3 chip_smoke.py --kernel-ab PATH
 
 builds the kernels of the checkout at PATH beside this checkout's and times
@@ -195,8 +217,9 @@ from unittest import mock
 import numpy as np
 import torch
 
-FWD_TOL = dict(rtol=2e-5, atol=1e-5)  # tests/test_fused_predict.py:32
-GRAD_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_fused_predict.py:65
+# the kernels' tolerances (ops/fused_predict.py), set by main() once it has
+# imported the package
+FWD_TOL = GRAD_TOL = None
 G, D, M_FLAGSHIP, M_PMS = 2, 6, 384, 448
 SWEEP_P, SWEEP_M = (1, 37, 400), (37, 100, 384, 448, 1024)
 # (use_poly, P, M, lane counts[, G, D]) of the lane-batched checks; M=37
@@ -214,6 +237,11 @@ LANE_CASES = ((True, 400, M_FLAGSHIP, (1, 4)), (False, 400, M_PMS, (1, 4)),
 # kernels line's by_shape rows: the 4PMS farm's and the wide path's at L=4
 LANE_ROWS = {(False, 400, M_SMALL, 4, 6), (False, 400, 192, 4, 12)}
 FARM_SEEDS = 4
+# the out-tag of phase 12's subprocess seeds
+JOBS_TAG = "chip_smoke_jobs"
+# phase 7's chunk_steps_override: the 9 steps after the uncaptured first
+# iteration in chunks of 4, 4 and 1
+FARM_CHUNK = 4
 # the wide path's shapes: (use_poly, G, P, M, D); the Furuta SE posterior at
 # its first and sixth trial, and UR5's SE+P(2)
 WIDE_CASES = ((False, 2, 400, 192, 12), (False, 2, 400, 960, 12), (True, 6, 200, 448, 24))
@@ -221,9 +249,10 @@ WIDE_CASES = ((False, 2, 400, 192, 12), (False, 2, 400, 960, 12), (True, 6, 200,
 # optimizer steps (a UR5 step takes 2-3.6 s on the host)
 UR5_STEPS = 3
 UR5_EPOCHS = 1001  # of the config's 2001
-# NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): float32 outside
-# the tensor cores, and HBM
-PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
+# set by ``--full-profile``: profile the steps that the default run only
+# times or runs (phase 9's Furuta SE step, phase 13's UR5 K1/K2 step, phase
+# 14 (b)'s Furuta farm, every mode of every path of phase 15)
+FULL_PROFILE = False
 
 
 def phase(name, t0):
@@ -380,6 +409,8 @@ def time_kernels(fp, use_poly, M, dev, P=400, G=G, D=D):
 def check_kernels(fp, dev):
     """Phase 2: the sweep, the timings, and the launch facts; returns
     per-kernel records for the kernels line."""
+    from mcpilco_tpu_torch.utils.profiling import bound
+
     rec = {"fwd": {"max_abs_err": 0.0}, "bwd": {"max_abs_err": 0.0}}
     for use_poly in (False, True):
         for P in SWEEP_P:
@@ -390,8 +421,8 @@ def check_kernels(fp, dev):
     for use_poly, M in ((True, M_FLAGSHIP), (False, M_FLAGSHIP), (False, M_PMS)):
         t = time_kernels(fp, use_poly, M, dev)
         if use_poly:  # the flagship shapes
-            for key, work, kernel in (("fwd", k1_work, "k1"), ("bwd", k2_work, "k2")):
-                ms, by = bound(work(1, 400, M, use_poly))
+            for key, work, kernel in (("fwd", fp.k1_work, "k1"), ("bwd", fp.k2_work, "k2")):
+                ms, by = bound(work(1, 400, M, use_poly, G, D))
                 rec[key].update(ms=t[f"{kernel}_kernel"], plain_ms=t[f"{kernel}_plain"],
                                 bound_ms=ms, bound_by=by, library_ms=None)
     for M in (M_FLAGSHIP, M_PMS):
@@ -403,9 +434,9 @@ def check_kernels(fp, dev):
         errs = check_case(fp, use_poly, P, M, dev, G=g, D=d)
         t = time_kernels(fp, use_poly, M, dev, P=P, G=g, D=d)
         shape = f"{'se+p2' if use_poly else 'se'} D={d} G={g} P={P} M={M}"
-        for key, work, kernel, err in (("fwd", k1_work, "k1", errs[0]),
-                                       ("bwd", k2_work, "k2", errs[1])):
-            ms, by = bound(work(1, P, M, use_poly, G=g, D=d))
+        for key, work, kernel, err in (("fwd", fp.k1_work, "k1", errs[0]),
+                                       ("bwd", fp.k2_work, "k2", errs[1])):
+            ms, by = bound(work(1, P, M, use_poly, g, d))
             rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"], err)
             rec[key]["by_shape"].append(dict(shape=shape, ms=t[f"{kernel}_kernel"],
                                              plain_ms=t[f"{kernel}_plain"], bound_ms=ms,
@@ -423,39 +454,14 @@ def check_kernels(fp, dev):
     return rec
 
 
-def k1_work(L, P, M, use_poly, G=G, D=D):
-    """(bytes, flops) of K1 as the main path calls it (kF saved): every
-    input read once, every output written once; flops of the kF
-    contraction, kalpha, quad and the k generation (distance, exp, mask and
-    the polynomial terms over the D input dims, an FMA counted as 2)."""
-    inputs = G * D + G + G * (D + 1) + 2 * G * D + P * D + M * D + G * M + G * M * M + G * M
-    outputs = 2 * G * P + G * P * M
-    gen = 4 * D + 4 + (6 * D + 3 if use_poly else 0)
-    return 4 * L * (inputs + outputs), L * G * P * M * (2 * M + 4 + gen)
-
-
-def k2_work(L, P, M, use_poly, G=G, D=D):
-    """(bytes, flops) of K2: reads K1's inputs, kF and the cotangents, writes
-    dx*; flops of R = kF F^T and the chain rule per (particle, point)."""
-    inputs = (G * D + G + G * (D + 1) + 2 * G * D + P * D + M * D + G * M + G * M * M + G * M
-              + G * P * M + 2 * G * P)
-    epi = 7 * D + 8 + (8 * D if use_poly else 0)
-    return 4 * L * (inputs + P * D), L * G * P * M * (2 * M + epi)
-
-
-def bound(work):
-    """The least time the card could take for (bytes, flops), in ms, and
-    what bounds it."""
-    t_bytes, t_ops = work[0] / PEAK_HBM_BYTES, work[1] / PEAK_FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def check_lanes(fp, dev):
     """Lane-batched K1 and K2: every lane against the plain version at
     FWD_TOL / GRAD_TOL and bitwise against the L=1 launch on that lane's
     inputs; device time per launch beside L x the L=1 time, and for
     ``LANE_ROWS`` the plain versions' time.  Returns the max errors (K1,
     K2) and the ``LANE_ROWS`` records (K1 rows, K2 rows)."""
+    from mcpilco_tpu_torch.utils.profiling import bound
+
     worst = [0.0, 0.0]
     rows = ([], [])
     for use_poly, P, M, lane_counts, *gd in LANE_CASES:
@@ -495,7 +501,7 @@ def check_lanes(fp, dev):
                     *args, kf, wk, wq, use_poly)), "k2_backward_xstar"),
             }
             one_us = one_us or per_us
-            b1, b2 = (bound(w(L, P, M, use_poly, G=g, D=d)) for w in (k1_work, k2_work))
+            b1, b2 = (bound(w(L, P, M, use_poly, g, d)) for w in (fp.k1_work, fp.k2_work))
             print(f"  lanes {kind:5s} L={L} P={P} M={M}: every lane bitwise equal to its L=1 "
                   f"launch; max err K1 {errs[0]:.3e} K2 {errs[1]:.3e} | device us per launch: "
                   f"K1 {per_us['k1']:.2f} (L x L=1: {L * one_us['k1']:.2f}, bound "
@@ -958,14 +964,62 @@ def farmed_against_alone(scen, cfg, farm, res, dev, steps, tol):
     return gap
 
 
+def farm_chunk_check(farm, fp, K=FARM_CHUNK, steps=10):
+    """The farm's ``improve_policy`` with ``chunk_steps_override=K`` against
+    the default chunks, from the same params on the same posteriors: costs,
+    steps and params bitwise equal; host reads 1 + ceil((steps - 1) / K)
+    (the uncaptured first iteration is a chunk of its own) against the
+    default's 2; ``progress_cb`` ticking once per read; K1/K2 with one lane
+    per seed.  Returns the launches of both calls."""
+    from mcpilco_tpu_torch.control.mc_pilco import PolicyOptOptions
+    from mcpilco_tpu_torch.control.trainer import graph_counts, reset_graph_counts
+
+    S = len(farm.seeds)
+    opts = PolicyOptOptions(opt_steps=steps, learning_rate=0.01, p_dropout=0.25)
+    params, ticks, out = farm.policy_params, [], {}
+    farm.progress_cb = lambda: ticks.append(1)
+    for override in (None, K):
+        farm.policy_params, farm.chunk_steps_override = params, override
+        reset_graph_counts()
+        fp.reset_launches()
+        ticks.clear()
+        cost, done, reinits = farm.improve_policy(opts, 1)
+        torch.cuda.synchronize()
+        out[override] = dict(cost=cost, done=done, reinits=int(reinits.sum()),
+                             params=farm.policy_params, reads=graph_counts["reads"],
+                             ticks=len(ticks), launches=dict(fp.launches),
+                             lanes=dict(fp.launched_lanes))
+    farm.progress_cb = farm.chunk_steps_override = None
+    a, b = out[None], out[K]
+    want = (2, 1 + -(-(steps - 1) // K))
+    if not (np.array_equal(a["cost"], b["cost"]) and np.array_equal(a["done"], b["done"])
+            and same_tree(a["params"], b["params"])):
+        raise RuntimeError(f"chunk_steps_override={K} left the default farm: costs "
+                           f"{a['cost'][:, -1]} against {b['cost'][:, -1]}")
+    for r in (a, b):
+        if r["ticks"] != r["reads"] or r["launches"]["fwd"] == 0 or any(
+                r["lanes"][k] != S * r["launches"][k] for k in r["launches"]):
+            raise RuntimeError(f"farm chunks: {r['ticks']} ticks for {r['reads']} reads, "
+                               f"launches {r['launches']}, lanes {r['lanes']}")
+    if (a["reinits"] + b["reinits"]) == 0 and (a["reads"], b["reads"]) != want:
+        raise RuntimeError(f"farm chunks: host reads {a['reads']} / {b['reads']}, want {want}")
+    print(f"  farm chunks, {steps} steps at S={S}: chunk_steps_override={K} bitwise the default "
+          f"(costs, steps, params); host reads {a['reads']} default / {b['reads']} at K={K}, "
+          f"a tick per read; launches {b['launches']} at L={S}", flush=True)
+    return {k: a["launches"][k] + b["launches"][k] for k in ("fwd", "bwd")}
+
+
 def farm_phase(fp, dev):
-    """Phase 7: the flagship seed farm at full width through ``SeedFarm.run``;
-    returns its kernel launches."""
+    """Phase 7: the flagship seed farm at full width through ``SeedFarm.run``,
+    then its chunk control (:func:`farm_chunk_check`); returns its kernel
+    launches."""
     from mcpilco_tpu_torch.scenarios import cartpole
 
     cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500)
     agent, farm, res, launches = run_farm(fp, dev, cartpole, cfg, range(1, FARM_SEEDS + 1),
                                           kernels=True)
+    more = farm_chunk_check(farm, fp)
+    launches = {k: launches[k] + more[k] for k in launches}
     farm_step_profile(agent, farm, host_steps=2, window=2)
     # the fits sum in another order when batched; 10 BPTT steps stay close
     # (5.77e-05 on the H100, while two seeds' costs differ by ~4e-3)
@@ -1157,7 +1211,8 @@ def farm_scenarios_phase(fp, dev):
     print("  (b) Furuta, semiparametric:", flush=True)
     cfg = furuta.FurutaConfig(seed=1, num_trials=1, opt_steps=(3,), gp_epochs=500)
     agent, farm, res, _ = run_farm(fp, dev, furuta, cfg, range(1, FARM_SEEDS + 1), kernels=False)
-    farm_step_profile(agent, farm, host_steps=2, window=2)
+    if FULL_PROFILE:
+        farm_step_profile(agent, farm, host_steps=2, window=2)
     farmed_against_alone(furuta, cfg, farm, res, dev, 3, 5e-3)
     del agent, farm, res
     part("b")
@@ -1271,7 +1326,9 @@ def entry_points_phase(fp, dev):
     resumed, trial 2 trained; the gap to the unbroken run's trial 2.  (c)
     ``apply_policy`` on ``complete_trial1``, on the plant (5 runs) and on the
     model (400 particles x 60 steps).  (d) ``repeat --farm`` over 2 seeds.
-    Returns the K1/K2 launches of (a)-(d)."""
+    (e) ``repeat --jobs 2`` over 2 seeds at full width as subprocesses,
+    1 trial of 5 steps each and 300-epoch fits.  Returns
+    the K1/K2 launches of (a)-(d)."""
     import os
     import shutil
 
@@ -1397,7 +1454,58 @@ def entry_points_phase(fp, dev):
                            f"{fp.launched_lanes}")
     print(f"  repeat --farm, 2 seeds: costs {seed_costs}, success rate "
           f"{summary['success_rate']}", flush=True)
+
+    # (e) subprocess seeds, two at once on the card (their launches are the
+    # children's)
+    t = time.perf_counter()
+    cut = ["--opt-steps=5", "--gp-epochs=300"]
+    rc = repeat.main(["--scenario", "cartpole", "--no-farm", "--jobs", "2", "--trials", "1",
+                      "--num-seeds", "2", "--device", str(dev), "--out-tag", JOBS_TAG]
+                     + [f"--extra-flag={f}" for f in cut])
+    jobs_s = time.perf_counter() - t
+    with open(os.path.join(root, f"repeat_cartpole_{JOBS_TAG}.json")) as f:
+        summary = json.load(f)
+    logs = [os.path.join(root, f"cartpole_{JOBS_TAG}_{s}", "stdout.log") for s in (1, 2)]
+    if rc != 0 or summary["seeds"] != [1, 2] or summary["infra_error_seeds"] or not all(
+            c is not None and math.isfinite(c) for c in summary["per_seed_cost"].values()) or \
+            summary["extra_flags"] != cut or summary["trials"] != 1 or summary["smoke"] or \
+            not all(map(os.path.isfile, logs)):
+        raise RuntimeError(f"repeat --jobs 2: rc {rc}, summary {summary}")
+    print(f"  repeat --jobs 2, 2 full-width seed subprocesses on the card: costs "
+          f"{summary['per_seed_cost']}, success rate {summary['success_rate']}, "
+          f"{jobs_s:.1f} s", flush=True)
     return {k: sum(c[k] for c in counted) for k in ("fwd", "bwd")}
+
+
+def summarize_phase():
+    """Phase 12 (f), after phase 14: ``summarize_results --json`` over the
+    summaries of phase 12 (d), (e) and phase 14 (d) as the port's, beside
+    the JAX package's records in ``results/``: a row for each of the three,
+    and the JAX flagship's."""
+    import io
+    import os
+
+    from mcpilco_tpu_torch.scripts import summarize_results
+
+    # each summary's row: its scenario and arm
+    expect = {"cartpole_chip_smoke": "cartpole [num_trials=1 opt_steps=(5,) gp_epochs=300]",
+              f"cartpole_{JOBS_TAG}": "cartpole [--trials=1 --opt-steps=5 --gp-epochs=300]",
+              "cartpole_pms_chip_smoke": "cartpole_pms [--trials=1 opt_steps=(3,) gp_epochs=300]"}
+    files = {name: os.path.join("results_tmp", "torch", f"repeat_{name}.json") for name in expect}
+    files = {name: path for name, path in files.items() if os.path.exists(path)}
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = summarize_results.main(["--json"] + [a for f in files.values() for a in ("--dir", f)])
+    rows = json.loads(out.getvalue())
+    mine = sorted(r["scenario"] for r in rows if r["package"] == "torch")
+    if rc != 0 or len(files) < 2 or mine != sorted(expect[name] for name in files) or not any(
+            r["package"] == "jax" and r["scenario"] == "cartpole" for r in rows):
+        raise RuntimeError(f"summarize_results over {list(files.values())}: rc {rc}, rows {rows}")
+    for r in rows:
+        if r["package"] == "torch" or r["scenario"] == "cartpole":
+            q = r["cost_quartiles"]
+            print(f"  {r['package']:5s} {r['scenario']}: {r['successes']}/{r['seeds']}, cost "
+                  f"quartiles {q and (q['q25'], q['median'], q['q75'])}", flush=True)
 
 
 def ur5_fitted(cfg, trials, fp, dev):
@@ -1426,11 +1534,11 @@ def ur5_fitted(cfg, trials, fp, dev):
 
 
 def ur5_step_profile(agent, fp, label):
-    """``UR5_STEPS`` timed optimizer steps as the host window of the step
-    profile; the costs finite, the kernels launched where the structure has
-    them."""
+    """``UR5_STEPS`` timed optimizer steps, with ``FULL_PROFILE`` as the host
+    window of the step profile; the costs finite, the kernels launched where
+    the structure has them."""
     from mcpilco_tpu_torch.utils import prng
-    from mcpilco_tpu_torch.utils.profiling import GRAPH_BASE, profile_steps
+    from mcpilco_tpu_torch.utils.profiling import GRAPH_BASE, host_ms, profile_steps
 
     runs = {}
 
@@ -1440,7 +1548,10 @@ def ur5_step_profile(agent, fp, label):
         torch.cuda.synchronize()
 
     fp.reset_launches()
-    p = profile_steps(run, host_steps=UR5_STEPS, window=2)
+    if FULL_PROFILE:
+        p = profile_steps(run, host_steps=UR5_STEPS, window=2)
+    else:
+        p = dict(host_ms=host_ms(run, UR5_STEPS)[0])
     res = runs[GRAPH_BASE + UR5_STEPS]
     costs = res.cost_history[: res.steps_done].numpy()
     if res.steps_done != GRAPH_BASE + UR5_STEPS or not np.all(np.isfinite(costs)):
@@ -1449,11 +1560,14 @@ def ur5_step_profile(agent, fp, label):
     if (min(fp.launches.values()) > 0) != kernels or (max(fp.launches.values()) > 0) != kernels:
         raise RuntimeError(f"UR5 {label}: launches {fp.launches} against the kernel structure "
                            f"{agent.gp._fused_structure()}")
-    top = ", ".join(f"{k[:40]} {v:.0f}" for k, v in list(p["events_by_kernel"].items())[:4])
+    profiled = ""
+    if FULL_PROFILE:
+        top = ", ".join(f"{k[:40]} {v:.0f}" for k, v in list(p["events_by_kernel"].items())[:4])
+        profiled = (f", device busy {p['busy_ms']:.2f} ms/step, device events per step "
+                    f"{p['events']:.0f}, idle share {p['idle']:.3f}; most events per step: {top}")
     print(f"  UR5 {label}, P={agent.optimizer.num_particles}, horizon {agent.optimizer.horizon}, "
-          f"remat: {p['host_ms']:.2f} host ms/step, device busy {p['busy_ms']:.2f} ms/step, device "
-          f"events per step {p['events']:.0f}, idle share {p['idle']:.3f}; cost {costs[0]:.3f} -> "
-          f"{costs[-1]:.3f}; most events per step: {top}", flush=True)
+          f"remat: {p['host_ms']:.2f} host ms/step; cost {costs[0]:.3f} -> {costs[-1]:.3f}"
+          f"{profiled}", flush=True)
     return p
 
 
@@ -1544,7 +1658,7 @@ def ur5_phase(fp, dev):
     if agent.gp._fused_structure() is not None:
         raise RuntimeError("UR5's default Sum(SE, MPK1) should have no fused structure")
     ur5_remat_check(agent, dev)
-    # its step profile, graphed and uncaptured, is phase 15's
+    # its K per read against one is phase 15's
     GRAPH_PATHS["ur5"] = agent_path(agent)
     del agent
 
@@ -1626,6 +1740,9 @@ GRAPH_LABELS = {"flagship": "flagship, P=400 (phase 3)", "4pms": "4PMS, M=448 (p
                 "farm": f"flagship farm, S={FARM_SEEDS} (phase 7)",
                 "furuta": "Furuta semiparametric, plain predict (phase 9)",
                 "ur5": "UR5 Sum(SE, MPK1), remat (phase 13)"}
+# phase 15's profiled modes per path; the other paths and modes run their
+# learning curves only (``--full-profile``: every mode of every path)
+GRAPH_PROFILED = {"flagship": ["chunked", "chunk=1"]}
 # phase 15's modes: (graph, chunk); "chunked" is what every other phase runs
 CHUNK_MODES = {"chunked": (True, None), "chunk=1": (True, 1), "uncaptured": (False, None)}
 
@@ -1687,51 +1804,52 @@ def fit_graph_path(name, fp, dev):
     return agent_path(agent)
 
 
-def graph_ab(name, step, fp, host_steps, window, curve_steps, modes):
+def graph_ab(name, step, fp, host_steps, window, curve_steps, modes, profiled):
     """One path's step captured as a CUDA graph and run K iterations per
     host read (the default, "chunked") against one read per iteration
     ("chunk=1"), and where ``modes`` holds "uncaptured" against the same
-    body uncaptured (``graph=False``): host ms/step in turns (each mode,
-    then back in reverse), device busy, the device's idle time inside one
-    replay, device events and host CUDA API calls per step, idle share, the
-    capture's seconds, K1/K2 per step; and from a
-    ``curve_steps`` learning curve from one key in each mode (uncaptured
-    twice), the host reads per call and the iterations run after every lane
-    stopped.  Fails unless the chunked curve and final params are bitwise
-    those of chunk=1 (the uncaptured ones: within the two uncaptured runs'
-    spread or 1e-5 relative), the device events per step agree within 0.4%
-    (the profiler's spread between windows of the same code; on a
-    disagreement all are profiled once more, since a window of ~10^5
-    records can come back short; ``profile_steps`` itself profiles again
-    a pair of windows that evidently lost records, and the row lists what
-    it refused), and K1/K2 are counted alike.  Returns the row."""
+    body uncaptured (``graph=False``).  For each mode in ``profiled``: host
+    ms/step in turns (each mode, then back in reverse), device busy, the
+    device's idle time inside one replay, device events and host CUDA API
+    calls per step, idle share, K1/K2 per step.  From a ``curve_steps``
+    learning curve from one key in each mode (uncaptured twice): the
+    capture's seconds, the host reads per call and the iterations run after
+    every lane stopped.  Fails unless the chunked curve and final params are
+    bitwise those of chunk=1 (the uncaptured ones: within the two uncaptured
+    runs' spread or 1e-5 relative), the device events per step of the
+    profiled modes agree within 0.4% (the profiler's spread between windows
+    of the same code; on a disagreement all are profiled once more, since a
+    window of ~10^5 records can come back short; ``profile_steps`` itself
+    profiles again a pair of windows that evidently lost records, and the
+    row lists what it refused), and K1/K2 are counted alike.  Returns the
+    row."""
     from mcpilco_tpu_torch.control import trainer
     from mcpilco_tpu_torch.utils.profiling import GRAPH_BASE, host_ms, profile_steps
 
     runner = lambda m: lambda n: step(n, CHUNK_MODES[m][0], 1, CHUNK_MODES[m][1])
     base = lambda m: GRAPH_BASE if CHUNK_MODES[m][0] else 1
-    prof, host = {}, {m: [] for m in modes}
+    prof, host = {}, {m: [] for m in profiled}
     for turn in range(2):
-        for m in (modes if turn % 2 == 0 else modes[::-1]):
+        for m in (profiled if turn % 2 == 0 else profiled[::-1]):
             if m in prof:
                 host[m] += host_ms(runner(m), host_steps, base(m))
             else:
                 prof[m] = profile_steps(runner(m), host_steps=host_steps, window=window,
                                         base=base(m))
                 host[m].append(prof[m]["host_ms"])
-    events = lambda: [prof[m]["events"] for m in modes]
-    spread = lambda: max(events()) - min(events()) > 0.004 * min(events())
+    events = lambda: [prof[m]["events"] for m in profiled]
+    spread = lambda: len(profiled) > 1 and max(events()) - min(events()) > 0.004 * min(events())
     if spread():
-        print(f"  graph {name}: device events per step {events()} ({modes}); profiling all "
+        print(f"  graph {name}: device events per step {events()} ({profiled}); profiling all "
               f"again", flush=True)
-        for m in modes:
+        for m in profiled:
             prof[m] = profile_steps(runner(m), host_steps=host_steps, window=window, base=base(m))
             host[m].append(prof[m]["host_ms"])
     kernel_steps = {m: {k: sum(v for n, v in prof[m]["events_by_kernel"].items() if k in n)
-                        for k in ("k1_forward", "k2_backward_xstar")} for m in modes}
+                        for k in ("k1_forward", "k2_backward_xstar")} for m in profiled}
     # device us per K1/K2 launch in each mode
     kernel_us = {m: {k: sum(t for n, t in prof[m]["us_by_kernel"].items() if k in n)
-                     / max(kernel_steps[m][k], 1) for k in kernel_steps[m]} for m in modes}
+                     / max(kernel_steps[m][k], 1) for k in kernel_steps[m]} for m in profiled}
 
     curves, launched, counts = {}, {}, {}
     runs = [m for m in modes] + (["uncaptured again"] if "uncaptured" in modes else [])
@@ -1751,17 +1869,17 @@ def graph_ab(name, step, fp, host_steps, window, curve_steps, modes):
     same = lambda a, b: np.array_equal(a[0], b[0]) and all(torch.equal(a[1][k], b[1][k])
                                                            for k in b[1])
     bitwise = same(curves["chunked"], curves["chunk=1"])
-    row = dict(modes=modes, host=host, capture_s=counts["chunked"]["captures_s"],
-               bitwise_across_chunks=bitwise, launches=launched,
-               reads_per_call={k: c["reads"] for k, c in counts.items()},
-               wasted={k: c["wasted"] for k, c in counts.items()},
-               k1_per_step=kernel_steps["chunked"]["k1_forward"],
-               k2_per_step=kernel_steps["chunked"]["k2_backward_xstar"], kernel_us=kernel_us,
-               profile_faults={m: prof[m]["profile_faults"] for m in modes},
-               **{f"{key}_{m}": prof[m][key] for m in modes
+    row = dict(modes=modes, profiled=profiled, host=host,
+               capture_s=counts["chunked"]["captures_s"], bitwise_across_chunks=bitwise,
+               launches=launched, reads_per_call={k: c["reads"] for k, c in counts.items()},
+               wasted={k: c["wasted"] for k, c in counts.items()}, kernel_us=kernel_us,
+               k1_per_step=kernel_steps.get("chunked", {}).get("k1_forward"),
+               k2_per_step=kernel_steps.get("chunked", {}).get("k2_backward_xstar"),
+               profile_faults={m: prof[m]["profile_faults"] for m in profiled},
+               **{f"{key}_{m}": prof[m][key] for m in profiled
                   for key in ("busy_ms", "gap_ms", "events", "api_calls", "idle")})
     api = lambda p: ", ".join(f"{k} {v:.0f}" for k, v in list(p["api_by_name"].items())[:3])
-    for m in modes:
+    for m in profiled:
         p = prof[m]
         print(f"  graph {name} [{m}]: host ms/step {' / '.join(f'{v:.2f}' for v in host[m])}; "
               f"device busy {p['busy_ms']:.2f} ms/step, idle inside a replay "
@@ -1839,7 +1957,8 @@ def exit_waste(step, curve_steps=10):
 
 def graph_phase(fp, dev):
     """Phase 15: every path of ``GRAPH_LABELS`` chunked against chunk=1
-    (``graph_ab``; the flagship against uncaptured too), the flagship made
+    (``graph_ab``; the flagship against uncaptured too; the modes of
+    ``GRAPH_PROFILED`` profiled, with ``FULL_PROFILE`` all), the flagship made
     to exit mid-chunk (``exit_waste``), then the flagship's reserved memory
     over three graphed calls (each frees its graph and pool: no growth).
     Prints the rows as one JSON line; returns them."""
@@ -1852,7 +1971,8 @@ def graph_phase(fp, dev):
             GRAPH_PATHS[name] = fit_graph_path(name, fp, dev)
         print(f"  ({GRAPH_LABELS[name]}):", flush=True)
         modes = ["chunked", "chunk=1"] + (["uncaptured"] if name == "flagship" else [])
-        rows[name] = graph_ab(name, GRAPH_PATHS[name], fp, *GRAPH_DEPTH[name], modes)
+        profiled = modes if FULL_PROFILE else GRAPH_PROFILED.get(name, [])
+        rows[name] = graph_ab(name, GRAPH_PATHS[name], fp, *GRAPH_DEPTH[name], modes, profiled)
         if name == "flagship":
             rows[name]["exit"] = exit_waste(GRAPH_PATHS[name])
         print(f"  ({name}) done in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1955,6 +2075,7 @@ def step_profile(root):
 
 
 def main():
+    global FWD_TOL, GRAD_TOL, FULL_PROFILE
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--farm-sweep", default=None,
                         help="comma-separated seed counts: profile the farm's step instead")
@@ -1964,6 +2085,9 @@ def main():
                         help="time K1/K2 of the checkout at PATH against this one's instead")
     parser.add_argument("--phases", default=None,
                         help="comma-separated phases 2-15 to run after the build (default all)")
+    parser.add_argument("--full-profile", action="store_true",
+                        help="also profile the steps the default run only times or runs "
+                             "(phases 9, 13, 14 (b) and 15; ~+4 min)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's chip check has no CPU path",
@@ -1980,6 +2104,8 @@ def main():
     from mcpilco_tpu_torch.ops import fused_predict as fp
     from mcpilco_tpu_torch.scenarios import cartpole, cartpole_pms, furuta
 
+    FWD_TOL, GRAD_TOL = fp.FWD_TOL, fp.GRAD_TOL
+    FULL_PROFILE = args.full_profile
     dev = torch.device("cuda", 0)
     disable_tf32()
     smi = card_facts()
@@ -2058,14 +2184,15 @@ def main():
         cfg = furuta.FurutaConfig(seed=1)
         print("  Furuta, semiparametric Sum(SE, Linear):", flush=True)
         semi = furuta.build(cfg, dev)[0]
-        # its step profile, graphed and uncaptured, is phase 15's
+        # its K per read against one is phase 15's
         policy_step(semi, 2, cfg.T_exploration, fp, dev, expect_m=320, epochs=500)
         GRAPH_PATHS["furuta"] = agent_path(semi)
         print("  Furuta, SE over 12 dims, on the same two trials:", flush=True)
         # the full fit under the learning curve: a 500-epoch model spread
         # kernel and plain curves 2.4% apart (0.27% at 1501 epochs)
         policy_step(furuta.build(dataclasses.replace(cfg, semiparametric=False), dev)[0], 2,
-                    cfg.T_exploration, fp, dev, expect_m=320, profile=True, trials=semi.trials)
+                    cfg.T_exploration, fp, dev, expect_m=320, profile=FULL_PROFILE,
+                    trials=semi.trials)
         phase("9 Furuta policy-optimization step (semiparametric; SE at D=12)", t0)
 
     if 10 in wanted:
@@ -2110,6 +2237,11 @@ def main():
                     f"se D={D} G={G} L={FARM_SEEDS} P=400 M={M_SMALL}"))
                 row.update(launches=pms["launches"][key], optimizer_steps=pms["optimizer_steps"])
         phase("14 the farm over 4PMS, Furuta, a host plant; repeat --farm; legacy variance", t0)
+
+    if 12 in wanted:
+        t0 = time.perf_counter()
+        summarize_phase()
+        phase("12 (f) summarize_results over the sweeps of phases 12 and 14", t0)
 
     if 15 in wanted:
         t0 = time.perf_counter()

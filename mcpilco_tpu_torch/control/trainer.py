@@ -58,7 +58,7 @@ import dataclasses
 import os
 import time
 import traceback
-from typing import List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -410,10 +410,12 @@ class PolicyOptimizer:
     # Iterations per host read, as the JAX package sizes its chunks: the
     # first chunk of a call runs chunk_steps / lanes iterations (fewer where
     # an earlier call measured that chunk_target_s seconds hold fewer), the
-    # later ones what the last chunk's rate fits into chunk_target_s.  No
-    # number depends on it.  chunk_iter_slack, which caps a chunk's NaN
-    # retries in the JAX loop, is taken and has no analog here: a NaN halts
-    # its lane until the chunk's read, so no retry runs inside a chunk.
+    # later ones what the last chunk's rate fits into chunk_target_s (the
+    # seed farm sizes its first chunk by the JAX farm's rule,
+    # ``multiseed.first_chunk_steps``).  No number depends on it.
+    # chunk_iter_slack, which caps a chunk's NaN retries in the JAX loop, is
+    # taken and has no analog here: a NaN halts its lane until the chunk's
+    # read, so no retry runs inside a chunk.
     chunk_steps: int = 500
     chunk_target_s: float = 15.0
     chunk_iter_slack: float = 2.0
@@ -525,7 +527,8 @@ class PolicyOptimizer:
 
     def optimize_lanes(self, keys: List, policy_params: dict, gp_params, posterior,
                        num_opt_steps, lr0, p_dropout0, trial_index=0, rids=None,
-                       noise_fn=None, graph: Optional[bool] = None, chunk: Optional[int] = None):
+                       noise_fn=None, graph: Optional[bool] = None, chunk: Optional[int] = None,
+                       first_chunk: Optional[int] = None, on_read: Optional[Callable] = None):
         """Optimize L lanes in one lane-batched loop: ``policy_params`` [L, ...],
         one key per lane, ``rids`` the lanes' restart ids (folded into their
         keys; 0 by default).  ``gp_params`` and ``posterior`` are shared or
@@ -536,7 +539,10 @@ class PolicyOptimizer:
         rollout still runs and is discarded) until every lane is.  The host
         reads the lanes back once per chunk of iterations: ``chunk`` forces
         the iterations per read (1: a read after every iteration), None
-        sizes them from ``chunk_steps`` and ``chunk_target_s``.  ``graph``
+        sizes them from ``chunk_steps`` and ``chunk_target_s``;
+        ``first_chunk`` then sets the first chunk's budget in place of
+        ``chunk_steps`` over the lanes.  ``on_read()`` is called after every
+        read (the seed farm's heartbeat).  ``graph``
         None captures the body as a CUDA graph when the policy is on a CUDA
         device (after ``GRAPH_WARMUP`` uncaptured iterations, a chunk of
         their own) and replays it for every later iteration; False runs it
@@ -595,7 +601,10 @@ class PolicyOptimizer:
                                               num_steps), graph, dev)
         reads = _StatusReads(buf.ints[:_STATUS], POLL_LAG)
         lanes = _Lanes(keys, rids)
-        budget = int(chunk) if chunk is not None else self._chunk_budget(L)
+        if chunk is not None:
+            budget = int(chunk)
+        else:
+            budget = int(first_chunk) if first_chunk is not None else self._chunk_budget(L)
         idle, chunk_index = 0, 0
         try:
             while True:
@@ -641,6 +650,8 @@ class PolicyOptimizer:
                     if chunk_index > 0:
                         object.__setattr__(self, "_measured_rate", rate)
                     chunk_index += 1
+                if on_read is not None:
+                    on_read()
         finally:
             step.close()
         return self._lane_results(buf, lanes.steps, lanes.reinits)

@@ -50,6 +50,11 @@ from . import kernels as K
 _LEGACY_VAR = os.environ.get("MCPILCO_LEGACY_VAR", "0") == "1"
 
 
+# epochs run by MultiGP.fit and fit_sor, one per epoch (a long fit's sign of
+# life for the in-process sweep's watchdog)
+fit_counts = {"epochs": 0}
+
+
 def use_legacy_variance_op(enable: bool = True) -> None:
     global _LEGACY_VAR
     _LEGACY_VAR = enable
@@ -255,6 +260,7 @@ class MultiGP:
             return t.reshape(t.shape + (1,) * (leaf.dim() - t.dim()))
 
         for _ in range(num_epochs):
+            fit_counts["epochs"] += 1
             cur = [t.detach().requires_grad_(tr) for t, tr in zip(p, trainable)]
             loss = self.mll(_unflatten(params, cur), data, norm)  # [*L]
             grads = torch.autograd.grad(loss.sum(), [cur[i] for i in idx])
@@ -519,6 +525,7 @@ class MultiGP:
         count, last = torch.zeros((), **opts), torch.tensor(math.inf, **opts)
         history = []
         for _ in range(num_epochs):
+            fit_counts["epochs"] += 1
             cur = [t.detach().requires_grad_(tr) for t, tr in zip(leaves, trainable)]
             loss = self.sor_mll(_unflatten(params, cur[:-1]), data, sel, u=cur[-1], norm=norm)
             grads = torch.autograd.grad(loss, [cur[i] for i in idx])

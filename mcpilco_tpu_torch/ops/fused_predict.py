@@ -374,3 +374,29 @@ def gram_contract(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, var_
     save_kf = torch.is_grad_enabled() and x_star.requires_grad
     return GramContract.apply(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha,
                               var_factor, mask, use_poly, save_kf)
+
+
+# the kernels' tolerances against their plain versions (those of the JAX
+# package's tests/test_fused_predict.py:32 and :65)
+FWD_TOL = dict(rtol=2e-5, atol=1e-5)  # kalpha, quad; mean and variance
+GRAD_TOL = dict(rtol=1e-4, atol=1e-4)  # dx*
+
+
+def k1_work(L, P, M, use_poly, G, D):
+    """(bytes, flops) of K1 as the main path calls it (kF saved): every
+    input read once, every output written once; flops of the kF
+    contraction, kalpha, quad and the k generation (distance, exp, mask and
+    the polynomial terms over the D input dims, an FMA counted as 2)."""
+    inputs = G * D + G + G * (D + 1) + 2 * G * D + P * D + M * D + G * M + G * M * M + G * M
+    outputs = 2 * G * P + G * P * M
+    gen = 4 * D + 4 + (6 * D + 3 if use_poly else 0)
+    return 4 * L * (inputs + outputs), L * G * P * M * (2 * M + 4 + gen)
+
+
+def k2_work(L, P, M, use_poly, G, D):
+    """(bytes, flops) of K2: reads K1's inputs, kF and the cotangents, writes
+    dx*; flops of R = kF F^T and the chain rule per (particle, point)."""
+    inputs = (G * D + G + G * (D + 1) + 2 * G * D + P * D + M * D + G * M + G * M * M + G * M
+              + G * P * M + 2 * G * P)
+    epi = 7 * D + 8 + (8 * D if use_poly else 0)
+    return 4 * L * (inputs + P * D), L * G * P * M * (2 * M + epi)

@@ -27,8 +27,13 @@ Scope: the plants of the JAX package's farm: ODE plants (the flagship and
 multi-init cart-pole, 4PMS, Furuta) on the device, any other plant with a
 ``rollout()`` on the host.  SOR, a host plant with offline filtering, a
 plant without ``rollout()`` and a device mesh raise, as in the JAX farm.
-The TPU runtime's chunk budgeting is not ported: the loop returns to the
-host every step.
+
+The optimizer reads the lanes back once per chunk of iterations, sized as
+the JAX farm sizes its chunks: the first by ``first_chunk_steps`` (the
+seeds and the horizon scale a chunk's device time), the later ones by what
+the last chunk's rate fits into ``PolicyOptimizer.chunk_target_s``;
+``SeedFarm.chunk_steps_override`` fixes every chunk instead.  No number
+depends on the chunks.
 """
 
 from __future__ import annotations
@@ -76,6 +81,14 @@ class FarmResult(NamedTuple):
         return self.trial_logs[-1].control_inputs
 
 
+def first_chunk_steps(chunk_steps: int, num_seeds: int, horizon: int) -> int:
+    """Iterations of a farm call's first chunk: the optimizer's
+    ``chunk_steps`` at 60 horizon steps for two seeds, scaled down by the
+    seeds and the horizon, at least 25 (``mcpilco_tpu/parallel/
+    multiseed.py:478-481``)."""
+    return max(25, 2 * chunk_steps * 60 // (max(num_seeds, 1) * max(horizon, 1)))
+
+
 def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
@@ -92,15 +105,20 @@ class SeedFarm:
 
     ``policy_init_fn(key) -> params`` initializes one seed's policy from its
     root key (e.g. ``lambda k: cartpole.policy_init(cfg, agent.policy, k,
-    device)``); by default the policy's own ``init_params``.  ``progress_cb``
-    (no arguments) is called after every collection, model fit and
-    optimization lane.
+    device)``); by default the policy's own ``init_params``.
+    ``chunk_steps_override`` fixes the optimizer's iterations per host read
+    for every chunk (profiling); by default the first chunk follows
+    :func:`first_chunk_steps` and the later ones adapt.  ``progress_cb`` (no
+    arguments) is called at every return to the host: after every
+    collection, model fit and read of the optimizer's lanes, so a healthy
+    farm ticks at least every ``chunk_target_s`` seconds of optimization.
     """
 
     agent: MCPilco
     seeds: Sequence[int]
     mesh: Optional[object] = None
     policy_init_fn: Optional[Callable] = None
+    chunk_steps_override: Optional[int] = None
     progress_cb: Optional[Callable] = None
 
     def __post_init__(self):
@@ -304,11 +322,13 @@ class SeedFarm:
                        lane_id: int):
         """One restart lane of every seed: (one OptResult per seed, each
         seed's winner metric [S])."""
-        out = self.agent.optimizer.optimize_lanes(
+        opt = self.agent.optimizer
+        return opt.optimize_lanes(
             keys, lane_params, self.gp_params, self.posterior, opts.opt_steps,
-            opts.learning_rate, opts.p_dropout, trial_index, rids=[lane_id] * len(keys))
-        self._tick()
-        return out
+            opts.learning_rate, opts.p_dropout, trial_index, rids=[lane_id] * len(keys),
+            chunk=self.chunk_steps_override,
+            first_chunk=first_chunk_steps(opt.chunk_steps, len(self.seeds), opt.horizon),
+            on_read=self._tick)
 
     # ---------------------------------------------------------- main loop
 

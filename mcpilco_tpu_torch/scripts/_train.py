@@ -13,6 +13,10 @@ def parser(name: str) -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--trials", type=int, default=None)
+    p.add_argument("--opt-steps", type=int, default=None,
+                   help="optimizer steps of every trial (a depth cut for a quick run)")
+    p.add_argument("--gp-epochs", type=int, default=None,
+                   help="epochs of every model fit (a depth cut for a quick run)")
     p.add_argument("--log-dir", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda", help="cpu to run on the CPU")
     p.add_argument("--auto-resume", action="store_true",
@@ -22,12 +26,13 @@ def parser(name: str) -> argparse.ArgumentParser:
 
 
 def config(cfg, args):
-    """``cfg`` cut to the smoke size and to ``--trials``, as the flags ask."""
+    """``cfg`` cut to the smoke size, to ``--trials``, ``--opt-steps`` and
+    ``--gp-epochs``, as the flags ask."""
     if args.smoke:
         cfg = cfg.smoke()
-    if args.trials is not None:
-        cfg = dataclasses.replace(cfg, num_trials=args.trials)
-    return cfg
+    cut = {"num_trials": args.trials, "gp_epochs": args.gp_epochs,
+           "opt_steps": None if args.opt_steps is None else (args.opt_steps,)}
+    return dataclasses.replace(cfg, **{k: v for k, v in cut.items() if v is not None})
 
 
 def build_and_train(scen, cfg, device, auto_resume: bool, tag: str, on_resumed=None,

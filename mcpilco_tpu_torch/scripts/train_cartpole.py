@@ -18,7 +18,8 @@ def run(cfg: scen.CartpoleConfig, device="cuda", auto_resume: bool = False):
     return _train.train(scen, cfg, device, auto_resume, "train_cartpole", angle_index=2)
 
 
-def main(argv=None) -> int:
+def parse(argv=None):
+    """The config and the flags that ``argv`` gives."""
     p = _train.parser("train cartpole")
     p.add_argument("--kernel", choices=["se+p2", "se"], default="se+p2")
     p.add_argument("--no-sod", action="store_true")
@@ -28,6 +29,11 @@ def main(argv=None) -> int:
         seed=args.seed, kernel=args.kernel, use_sod=not args.no_sod,
         multi_init=args.multi_init, log_dir=args.log_dir or f"results_tmp/torch/{args.seed}",
     ), args)
+    return cfg, args
+
+
+def main(argv=None) -> int:
+    cfg, args = parse(argv)
     agent, _ = run(cfg, args.device, args.auto_resume)
     return _train.exit_code(scen, agent, args)
 

@@ -28,7 +28,8 @@ def run(cfg: scen.CartpoleMujocoConfig, device="cuda", auto_resume: bool = False
     return agent, done
 
 
-def main(argv=None) -> int:
+def parse(argv=None):
+    """The config and the flags that ``argv`` gives."""
     p = _train.parser("train cartpole mujoco")
     p.add_argument("--delta-cap", type=float, default=None,
                    help="cap per-step rollout deltas at this multiple of the largest training "
@@ -45,6 +46,11 @@ def main(argv=None) -> int:
         delta_cap=args.delta_cap, num_restarts=args.num_restarts,
         restart_vmap=not args.sequential_restarts, cost_lengthscales=args.cost_lengthscales,
     ), args)
+    return cfg, args
+
+
+def main(argv=None) -> int:
+    cfg, args = parse(argv)
     agent, _ = run(cfg, args.device, args.auto_resume)
     return _train.exit_code(scen, agent, args)
 

@@ -17,7 +17,8 @@ def run(cfg: scen.CartpolePMSConfig, device="cuda", auto_resume: bool = False):
     return _train.train(scen, cfg, device, auto_resume, "train_cartpole_pms", angle_index=2)
 
 
-def main(argv=None) -> int:
+def parse(argv=None):
+    """The config and the flags that ``argv`` gives."""
     p = _train.parser("train cartpole 4pms")
     p.add_argument("--vel-est", type=str, default="butter_cd", choices=("butter_cd", "savgol"),
                    help="offline velocity estimator of the GP targets: Butterworth + central "
@@ -32,6 +33,11 @@ def main(argv=None) -> int:
         restart_vmap=not args.sequential_restarts,
         log_dir=args.log_dir or f"results_tmp/torch/pms_{args.seed}",
     ), args)
+    return cfg, args
+
+
+def main(argv=None) -> int:
+    cfg, args = parse(argv)
     agent, _ = run(cfg, args.device, args.auto_resume)
     return _train.exit_code(scen, agent, args)
 

@@ -17,7 +17,8 @@ def run(cfg: scen.FurutaConfig, device="cuda", auto_resume: bool = False):
     return _train.train(scen, cfg, device, auto_resume, "train_furuta", angle_index=1)
 
 
-def main(argv=None) -> int:
+def parse(argv=None):
+    """The config and the flags that ``argv`` gives."""
     p = _train.parser("train furuta")
     p.add_argument("--no-semiparametric", action="store_true")
     p.add_argument("--num-restarts", type=int, default=1,
@@ -30,6 +31,11 @@ def main(argv=None) -> int:
         num_restarts=args.num_restarts, restart_vmap=not args.sequential_restarts,
         log_dir=args.log_dir or f"results_tmp/torch/furuta_{args.seed}",
     ), args)
+    return cfg, args
+
+
+def main(argv=None) -> int:
+    cfg, args = parse(argv)
     agent, _ = run(cfg, args.device, args.auto_resume)
     return _train.exit_code(scen, agent, args)
 

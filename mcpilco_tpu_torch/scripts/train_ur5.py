@@ -65,7 +65,8 @@ def run(cfg: scen.UR5Config, device="cuda", auto_resume: bool = False):
     return agent, done
 
 
-def main(argv=None) -> int:
+def parse(argv=None):
+    """The config and the flags that ``argv`` gives."""
     p = _train.parser("train ur5 tracking")
     p.add_argument("--trajectory", choices=["generated", "reference"], default="generated",
                    help="'reference' reads the original task's recorded CSV from "
@@ -91,6 +92,11 @@ def main(argv=None) -> int:
         delta_cap=args.delta_cap if args.delta_cap > 0 else None,
         plateau_rescue=args.plateau_rescue, plateau_rescue_frac=args.plateau_rescue_frac,
     ), args)
+    return cfg, args
+
+
+def main(argv=None) -> int:
+    cfg, args = parse(argv)
     agent, _ = run(cfg, args.device, args.auto_resume)
     return 0 if (scen.tracking_success(agent) or args.smoke) else 1
 

@@ -37,6 +37,17 @@ PROFILE_ATTEMPTS = 4
 
 _RECORDS_CHECKED = []
 
+# NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet): float32 outside
+# the tensor cores, and HBM
+PEAK_FP32_FLOPS, PEAK_HBM_BYTES = 67e12, 3.35e12
+
+
+def bound(work):
+    """The least time the card could take for (bytes, flops), in ms, and
+    what bounds it."""
+    t_bytes, t_ops = work[0] / PEAK_HBM_BYTES, work[1] / PEAK_FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
 
 def _kineto_events(prof):
     return prof.profiler.kineto_results.events()

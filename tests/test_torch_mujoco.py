@@ -232,8 +232,10 @@ def test_scenario_is_registered_in_the_scripts():
     from mcpilco_tpu_torch.scripts import apply_policy, repeat
 
     assert apply_policy.SCENARIOS["cartpole_mujoco"][0] is tcm
-    mod, script, cfg_fn, success = repeat.SCENARIOS["cartpole_mujoco"]
-    assert mod is tcm and cfg_fn(4) == tcm.CartpoleMujocoConfig(seed=4)
+    mod, script, success = repeat.SCENARIOS["cartpole_mujoco"]
+    # a seed's config is what its script's flags give: the config's defaults
+    cfg, _ = script.parse(["--seed", "4"])
+    assert mod is tcm and dataclasses.replace(cfg, log_dir=None) == tcm.CartpoleMujocoConfig(seed=4)
     assert script is importlib.import_module("mcpilco_tpu_torch.scripts.train_cartpole_mujoco")
     # the farm takes the MuJoCo plant on request, as the JAX package's repeat
     assert "cartpole_mujoco" in repeat.FARM_SUPPORTED and "cartpole_mujoco" not in repeat.FARMABLE

@@ -21,7 +21,8 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ["train_cartpole", "train_cartpole_pms", "train_furuta", "train_ur5",
-           "train_cartpole_mujoco", "apply_policy", "repeat", "profile_opt"]
+           "train_cartpole_mujoco", "apply_policy", "repeat", "profile_opt", "summarize_results",
+           "profile_farm", "bench_particle_scaling"]
 # repeat's seeds cut to a few seconds each
 TINY_KW = ["--scenario-kw", "num_particles=16", "--scenario-kw", "opt_steps=(3,)",
            "--scenario-kw", "gp_epochs=30", "--scenario-kw", "num_basis=10"]
@@ -70,14 +71,15 @@ def test_apply_policy(smoke_run, target, expect, capsys):
 
 
 def _jax_summary_keys(tmp_path, monkeypatch):
-    """The keys of the JAX package's ``_write_summary``."""
+    """The keys of the JAX package's ``_write_summary``, and the port's two
+    that say whether a sweep was cut down (``smoke``, ``trials``)."""
     monkeypatch.syspath_prepend(os.path.join(REPO, "scripts"))
     jrepeat = importlib.import_module("repeat")
     args = type("Args", (), dict(scenario="cartpole", out_tag="keys", extra_flag=[],
                                  scenario_kw=[]))()
     summary, _ = jrepeat._write_summary(args, {1: True}, {1: 7.5}, set(), complete=True)
     sys.modules.pop("repeat")
-    return set(summary)
+    return set(summary) | {"smoke", "trials"}
 
 
 @pytest.mark.parametrize("farm", [False, True])

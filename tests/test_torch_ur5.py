@@ -515,7 +515,9 @@ def test_scenario_is_registered_in_the_scripts():
     from mcpilco_tpu_torch.scripts import apply_policy, repeat
 
     assert apply_policy.SCENARIOS["ur5"][0] is tur5
-    mod, script, cfg_fn, success = repeat.SCENARIOS["ur5"]
-    assert mod is tur5 and cfg_fn(3) == tur5.UR5Config(seed=3)
+    mod, script, success = repeat.SCENARIOS["ur5"]
+    # a seed's config is what its script's flags give: the config's defaults
+    cfg, _ = script.parse(["--seed", "3"])
+    assert mod is tur5 and dataclasses.replace(cfg, log_dir=None) == tur5.UR5Config(seed=3)
     assert script is importlib.import_module("mcpilco_tpu_torch.scripts.train_ur5")
     assert success is tur5.tracking_success
