@@ -109,7 +109,7 @@ flagship, against the uncaptured body (``graph=False``).
     checkpoint round trip restored bitwise;
 14. the seed farm over the other scenarios at full width, depth cut: (a)
     4PMS over 4 seeds (P=400, horizon 90, exact 'se' GP, BPTT clip 0.2,
-    500-epoch fits, 1 trial of 5 steps), K1/K2 with 4 lanes, the device
+    300-epoch fits, 1 trial of 5 steps), K1/K2 with 4 lanes, the device
     offline estimator against the host path on the farm's exploration
     trials, the step profile beside one seed's and beside one seed as a
     lane axis of size 1 (equal device events), one seed's 5-step curve
@@ -142,7 +142,22 @@ flagship, against the uncaptured body (``graph=False``).
     flagship made to exit at step 2 of a 10-step call (at most
     ``POLL_LAG`` - 1 iterations after the exit, results bitwise those of
     chunk=1) and its reserved memory over three graphed calls (no growth).
-    One JSON line ``{"graph": ...}`` holds the rows.
+    One JSON line ``{"graph": ...}`` holds the rows;
+16. the mesh (``parallel/mesh.py``): ``parallel.dryrun.worker`` on
+    min(4, cards) NCCL ranks (1, 2 or 4), one process per card, at full
+    flagship width: (a) the particle round (phase 3's dataset and fitted
+    GP, 5 more GP epochs, 10 optimizer steps, P=400 over "p", the cost
+    pieces and the gradient all-reduced inside each rank's graph), its step
+    profiled per rank beside one card's (host ms/step, device busy, events,
+    NCCL kernels and their device us per step); (b) phase 7's farm over the
+    seed groups, with seed-steps/s over the cards against one card's; (c)
+    the same farm on a 2D ("s", "p") mesh; (d) 4 restart lanes on an
+    ("r", "p") mesh.  Each is held against the same run on one card in
+    this process (the farms against phase 7's): bitwise where no particle
+    shard is split (every check at world 1; the seed farm at any world),
+    else at the JAX package's particle tolerances; every disagreement is
+    printed before the phase fails.  With one card it says that the checks
+    over 2-4 cards did not run.  One JSON line ``{"mesh": ...}``.
 
 Phase 2 also holds K1/K2 in their wide path (input dims above 8, walked in
 chunks of 8) against their plain versions at the Furuta shapes ('se', D=12,
@@ -160,8 +175,9 @@ against ``MultiGP._predict_plain``.
 
 There is no CPU path: without a CUDA device the script exits non-zero.  The
 last line is ``{"ok": true, "device": {...}}``; the line before it lists the
-kernels with their launches (phases 4, 6, 7, 8, 10, 11, 12, 13 and 14; a
-graph's launches count once per replay),
+kernels with their launches (phases 4, 6, 7, 8, 10, 11, 12, 13, 14 and
+16, the last summed over its ranks; a graph's launches count once per
+replay),
 errors, device times at the flagship shapes and their bounds, and the same
 per wide shape and for the L=4 lane shapes of the 4PMS farm and the wide
 path (``by_shape``; the UR5 shape with its launches in phase 13 and its
@@ -171,7 +187,8 @@ optimizer step in phase 14).
     python3 chip_smoke.py --phases 2,9,10,14
 
 runs phase 1 and only the listed phases (the kernels line needs all;
-``--phases 15`` alone fits its five paths itself).
+``--phases 15`` alone fits its five paths itself, ``--phases 16`` its
+flagship and farm).
 
     python3 chip_smoke.py --full-profile
 
@@ -1013,11 +1030,14 @@ def farm_phase(fp, dev):
     """Phase 7: the flagship seed farm at full width through ``SeedFarm.run``,
     then its chunk control (:func:`farm_chunk_check`); returns its kernel
     launches."""
+    from mcpilco_tpu_torch.control.trainer import graph_counts, reset_graph_counts
     from mcpilco_tpu_torch.scenarios import cartpole
 
-    cfg = cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500)
+    cfg = farm_config()
+    reset_graph_counts()
     agent, farm, res, launches = run_farm(fp, dev, cartpole, cfg, range(1, FARM_SEEDS + 1),
                                           kernels=True)
+    MESH_INPUTS["farm"] = (res, dict(graph_counts))  # phase 16's one-card farm
     more = farm_chunk_check(farm, fp)
     launches = {k: launches[k] + more[k] for k in launches}
     farm_step_profile(agent, farm, host_steps=2, window=2)
@@ -1171,7 +1191,7 @@ def host_plant_farm(fp, dev):
 def farm_scenarios_phase(fp, dev):
     """Phase 14: the seed farm over the other scenarios at full width, depth
     cut.  (a) 4PMS over ``FARM_SEEDS`` seeds (P=400, horizon 90, exact 'se'
-    GP, BPTT clip 0.2, 500-epoch fits, 1 trial of 5 steps): K1/K2 with one
+    GP, BPTT clip 0.2, 300-epoch fits, 1 trial of 5 steps): K1/K2 with one
     lane per seed, the device estimator against the host path, (e) the
     legacy variance operator on the farm's posteriors, the step profile
     beside one seed's and beside a lane axis of size 1, one seed's curve
@@ -1195,20 +1215,24 @@ def farm_scenarios_phase(fp, dev):
         t0 = time.perf_counter()
 
     print("  (a) 4PMS:", flush=True)
-    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(5,), gp_epochs=500)
+    # depth cut to make room for phase 16: 300-epoch fits (500), profiled
+    # windows of 1 step (2)
+    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(5,), gp_epochs=300)
     agent, farm, res, launches = run_farm(fp, dev, cartpole_pms, cfg, range(1, FARM_SEEDS + 1),
                                           kernels=True)
     counted.append(launches)
     pms = dict(launches=launches, optimizer_steps=int(res.trial_logs[0].steps_done.max()))
     pms_estimator_check(agent, farm, cfg, dev)
     legacy_variance_check(agent, farm, fp, dev)
-    farm_step_profile(agent, farm, host_steps=2, window=2, lane_one=True)
+    farm_step_profile(agent, farm, host_steps=2, window=1, lane_one=True)
     # the sensor chain has gain 1/dt = 30: the CPU test's tolerance
     farmed_against_alone(cartpole_pms, cfg, farm, res, dev, 5, 5e-3)
     del agent, farm, res
     part("a")
 
     print("  (b) Furuta, semiparametric:", flush=True)
+    # the farmed-against-alone check needs the 500-epoch fit: at 300 epochs
+    # the two curves spread 1.1e-2 apart (H100)
     cfg = furuta.FurutaConfig(seed=1, num_trials=1, opt_steps=(3,), gp_epochs=500)
     agent, farm, res, _ = run_farm(fp, dev, furuta, cfg, range(1, FARM_SEEDS + 1), kernels=False)
     if FULL_PROFILE:
@@ -1989,6 +2013,288 @@ def graph_phase(fp, dev):
     return rows
 
 
+# phase 16: the flagship agent of phase 3 (its six trials and fitted GP) and
+# phase 7's farm with the replays' clock around it, where those phases ran
+MESH_INPUTS = {}
+# phase 16's depth: optimizer steps of the particle round and restart lanes,
+# the steps of its profiled window, the restart lanes
+MESH_STEPS, MESH_WINDOW, MESH_RESTARTS = 5, 1, 4
+# the particle axis's tolerances: the JAX package's (tests/test_parallel.py)
+# for the costs and final parameters, its end-to-end ones for an executed trial
+COST_TOL = dict(rtol=2e-4, atol=1e-5)
+PARAM_TOL = dict(rtol=1e-3, atol=1e-5)
+TRIAL_TOL = dict(rtol=1e-3, atol=5e-3)
+# a particle-sharded result beyond those tolerances passes only within this
+# factor of the largest gap between one-card runs that differ in nothing but
+# the order of their float32 sums (the witnesses)
+WITNESS_FACTOR = 2.0
+
+
+def farm_config():
+    """Phase 7's farm config (phase 16 holds its farms against phase 7's)."""
+    from mcpilco_tpu_torch.scenarios import cartpole
+
+    return cartpole.CartpoleConfig(seed=1, num_trials=1, opt_steps=(10,), gp_epochs=500)
+
+
+def mesh_ranks() -> int:
+    """Phase 16's ranks: the most cards up to 4 whose count tiles the
+    farm's 4 seeds (1, 2 or 4)."""
+    visible = torch.cuda.device_count()
+    return 4 if visible >= 4 else 2 if visible >= 2 else 1
+
+
+def farm_reference(dev, cfg, size):
+    """The farm of ``cfg`` on one card, as ``dryrun.run_farm`` returns it,
+    run as one farm per group of ``size`` seeds (a seed group of phase 16's
+    mesh) and joined in seed order.  All seeds in one group: phase 7's
+    farm, taken from phase 7 where it ran."""
+    from mcpilco_tpu_torch.parallel import dryrun
+
+    seeds = list(range(1, FARM_SEEDS + 1))
+    if size == FARM_SEEDS and "farm" in MESH_INPUTS:
+        res, counts = MESH_INPUTS["farm"]
+        per_iter = counts["replays_s"] / counts["replays"]
+        return dict(seeds=res.seeds, logs=[log._asdict() for log in res.trial_logs],
+                    params={k: v.cpu().numpy() for k, v in res.policy_params.items()},
+                    seed_steps_per_s=len(res.seeds) / per_iter)
+    return dryrun.join_farms([dryrun.run_farm(dict(cfg=cfg, seeds=seeds[i:i + size],
+                                                   device=str(dev)))
+                              for i in range(0, FARM_SEEDS, size)])
+
+
+def mesh_phase(fp, dev):
+    """Phase 16: the mesh.  ``dryrun.worker`` on ``mesh_ranks()`` NCCL ranks,
+    one card each, at the flagship's full width: (a) the particle round:
+    phase 3's six-trial dataset (N=360, M=384), 5 more GP epochs from its
+    fitted hyperparameters, then 5 optimizer steps, P=400 over the "p" axis
+    (the cost pieces and the gradient all-reduced inside each rank's
+    captured graph), profiled per rank; (b) phase 7's farm (seeds 1-4, 1
+    trial of 10 steps, 500-epoch fits) over the seed groups; (c) the same
+    farm on a 2D ("s", "p") mesh (on 2-4 cards: at world 1 it is (b)'s
+    run); (d) 4 restart lanes over ("r", "p").
+
+    Each is held against the same computation on one card in this process,
+    and every rank's results against rank 0's, bitwise.  At world 1 every
+    result is bitwise the one-card run's.  On 2-4 cards: each seed group's
+    farm bitwise the one-card farm of the same seeds (seed sharding adds no
+    arithmetic); the particle-sharded results at the JAX package's
+    tolerances (COST_TOL, PARAM_TOL, TRIAL_TOL) against one-card runs of the
+    same lane batch: the round against the round, the restart lanes against
+    lanes run in the ranks' batches, the 2D farm against the one-card farms
+    of its seed groups, the steps equal.  A parameter or executed trial
+    beyond its tolerance passes only within WITNESS_FACTOR of its witness:
+    the largest gap between one-card runs that differ only in the order of
+    their sums (the round with its particles reversed and rolled by P/2;
+    the farm at the seed-group sizes of the phase).  Every disagreement is
+    printed before the phase fails.  Returns the ranks' K1/K2 launches."""
+    from mcpilco_tpu_torch.models.gp import tree_map
+    from mcpilco_tpu_torch.parallel import dryrun
+    from mcpilco_tpu_torch.parallel import mesh as mesh_mod
+
+    n = mesh_ranks()
+    visible = torch.cuda.device_count()
+    split = n > 1  # a particle axis 2 wide (mesh_shapes)
+    if not split:
+        print(f"  {visible} card visible: the checks over 2-4 cards did not run; the NCCL path "
+              "runs at world 1 (communicator, collectives captured in the graph, results "
+              "bitwise the one-card run); (c)'s (1, 1) farm is (b)'s and is not run again",
+              flush=True)
+    elif n < visible or n < 4:
+        print(f"  {visible} cards visible: {n} ranks", flush=True)
+    agent = MESH_INPUTS.get("flagship") or fit_graph_path("flagship", fp, dev).agent
+    cpu = lambda tree: tree_map(lambda t: t.detach().cpu(), tree)
+    inputs = dict(optimizer=agent.optimizer, policy_params=cpu(agent.policy_params),
+                  gp_params=cpu(agent.gp_params), data=cpu(agent._padded_data()),
+                  key=agent.key, lr0=0.01, p_dropout0=0.25, device=str(dev))
+    farm_cfg = farm_config()
+    farm = dict(cfg=farm_cfg, seeds=list(range(1, FARM_SEEDS + 1)))
+    a, b = dryrun.mesh_shapes(n)
+    spec = dict(round=dict(inputs, epochs=5, steps=MESH_STEPS, profile=MESH_WINDOW),
+                farm=farm, restart=dict(inputs, restarts=MESH_RESTARTS, steps=MESH_STEPS))
+    if split:
+        spec["farm2d"] = farm
+    t0 = time.perf_counter()
+    # the restart lanes in the batches each rank of the (a, b) mesh runs
+    ref = dryrun.reference(dict(round=spec["round"],
+                                restart=dict(spec["restart"], lane_batch=MESH_RESTARTS // a)))
+    farms = {size: farm_reference(dev, farm_cfg, size)
+             for size in {FARM_SEEDS, FARM_SEEDS // n, FARM_SEEDS // a}}
+    witness = {}
+    if split:
+        P = agent.optimizer.num_particles
+        orders = dict(identity=np.arange(P), reversed=np.arange(P)[::-1].copy(),
+                      rolled=np.roll(np.arange(P), P // 2))
+        witness = {k: dryrun.run_round(dict(spec["round"], order=o, profile=None))
+                   for k, o in orders.items()}
+    print(f"  one card: the round, the restart lanes, the farms of {sorted(farms)} seeds and "
+          f"{len(witness)} reordered rounds in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    outs = mesh_mod.launch(dryrun.worker, n, "cuda", args=(spec, True), timeout=400)
+    print(f"  {n} NCCL ranks: spawned, checked and joined in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    faults = []  # every disagreement is printed before the phase fails
+
+    def gap(g, w):
+        return float(np.max(np.abs(np.asarray(g, np.float64) - np.asarray(w, np.float64))))
+
+    def rel_gap(g, w):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        return float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30)))
+
+    def agree(got, want, what, tol=None, witness_gaps=None):
+        """``tol`` None: bitwise; else np.allclose's keywords, or with
+        ``witness_gaps`` ({key: gap}) within WITNESS_FACTOR of the key's."""
+        for k, w in want.items():
+            if tol is None:
+                if not np.array_equal(got[k], w):
+                    faults.append(f"{what}: {k} not bitwise (largest gap {gap(got[k], w)})")
+                continue
+            if np.allclose(got[k], w, **tol):
+                continue
+            g = gap(got[k], w)
+            bound = None if witness_gaps is None else WITNESS_FACTOR * witness_gaps[k]
+            if bound is None or not g <= bound:
+                faults.append(f"{what}: {k} beyond {tol} (largest gap {g}"
+                              f"{'' if bound is None else f', witness bound {bound}'})")
+
+    def same(x, y):
+        if isinstance(x, dict):
+            return x.keys() == y.keys() and all(same(x[k], y[k]) for k in x
+                                                if k != "wall_clock_s")
+        if isinstance(x, list):
+            return len(x) == len(y) and all(same(u, v) for u, v in zip(x, y))
+        x, y = np.asarray(x), np.asarray(y)
+        return x.shape == y.shape and bool(np.all((x == y) | ((x != x) & (y != y))))
+
+    # every rank holds the same bits of every result
+    for i, o in enumerate(outs[1:], 1):
+        for c in ("round", "restart", "farm", "farm2d"):
+            for k in ("cost_history", "params", "logs", "restart_costs", "steps_done"):
+                if c in o and k in o[c] and not same(o[c][k], outs[0][c][k]):
+                    faults.append(f"rank {i}'s {c} {k} differs from rank 0's")
+    bit = None if split else "bitwise"
+    r, rr = outs[0]["round"], ref["round"]
+    agree(r, dict(steps_done=rr["steps_done"], mll_history=rr["mll_history"]), "round")
+    agree(r, dict(cost_history=rr["cost_history"]), "round", COST_TOL if split else None)
+    wgap = {}
+    if split:
+        agree(witness["identity"], dict(cost_history=rr["cost_history"]), "identity witness")
+        agree(witness["identity"]["params"], rr["params"], "identity witness params")
+        wgap = {k: max(gap(witness[o]["params"][k], v) for o in ("reversed", "rolled"))
+                for k, v in rr["params"].items()}
+        agree(r["params"], rr["params"], "round params", PARAM_TOL, wgap)
+    else:
+        agree(r["params"], rr["params"], "round params")
+    for o in outs:
+        g = o["round"]["graph"]
+        if g["captures"] < 1 or g["replays"] < MESH_STEPS - 2:
+            faults.append(f"a rank's round did not replay its graph: {g}")
+    rs, rsr = outs[0]["restart"], ref["restart"]
+    agree(rs, dict(restart_winner=rsr["restart_winner"], steps_done=rsr["steps_done"]),
+          "restarts")
+    agree(rs, dict(restart_costs=rsr["restart_costs"], cost_history=rsr["cost_history"]),
+          "restarts", COST_TOL if split else None)
+    if not split:
+        agree(rs["params"], rsr["params"], "restart winner params")
+    # (b): each seed group bitwise the one-card farm of its seeds
+    f1, want1 = outs[0]["farm"], farms[FARM_SEEDS // n]
+    for g, w in zip(f1["logs"], want1["logs"]):
+        agree(g, {k: w[k] for k in ("steps_done", "cost_history", "control_true")}, "farm")
+    agree(f1["params"], want1["params"], "farm params")
+    gaps = {}
+    for g, w in zip(f1["logs"], farms[FARM_SEEDS]["logs"]):  # phase 7's 4-seed farm
+        agree(g, dict(cost_history=w["cost_history"]), "farm against phase 7's farm",
+              dict(rtol=1e-3, atol=0.0))
+
+    def farm_gaps(x, y):
+        lx, ly = x["logs"][-1], y["logs"][-1]
+        return dict(cost_history=gap(lx["cost_history"], ly["cost_history"]),
+                    costs_rel=rel_gap(lx["cost_history"], ly["cost_history"]),
+                    control_true=gap(lx["control_true"], ly["control_true"]),
+                    params=max(gap(x["params"][k], v) for k, v in y["params"].items()),
+                    by_leaf={k: gap(x["params"][k], v) for k, v in y["params"].items()})
+
+    gaps["farm"] = farm_gaps(f1, farms[FARM_SEEDS])
+    if split:
+        # (c): the 2D farm against the one-card farms of its seed groups; its
+        # witness: the one-card farms of other seed-group sizes against those
+        f2, want2 = outs[0]["farm2d"], farms[FARM_SEEDS // a]
+        others = [farm_gaps(farms[sz], want2) for sz in farms if sz != FARM_SEEDS // a]
+        fw = {k: max(o[k] for o in others) for k in ("cost_history", "control_true")}
+        fw_leaf = {k: max(o["by_leaf"][k] for o in others) for k in want2["params"]}
+        for g, w in zip(f2["logs"], want2["logs"]):
+            agree(g, dict(steps_done=w["steps_done"]), "farm2d")
+            agree(g, dict(cost_history=w["cost_history"]), "farm2d", COST_TOL)
+            agree(g, dict(control_true=w["control_true"]), "farm2d", TRIAL_TOL, fw)
+        agree(f2["params"], want2["params"], "farm2d params", PARAM_TOL, fw_leaf)
+        gaps["farm2d"] = dict(farm_gaps(f2, want2), witness=dict(fw, params=fw_leaf))
+    prof, one = [o["round"]["profile"] for o in outs], rr["profile"]
+    num = lambda p, k, f="{:.2f}": f.format(p[k]) if k in p else "not measured"
+
+    def step_line(p):
+        return (f"{num(p, 'host_ms')} host ms/step, device busy {num(p, 'busy_ms')} ms/step "
+                f"({num(p, 'busy_ex_nccl_ms')} without NCCL), "
+                f"{num(p, 'events', '{:.0f}')} device events/step, idle "
+                f"{num(p, 'idle', '{:.3f}')}, K1/K2 per step {num(p, 'k1_per_step', '{:.0f}')}/"
+                f"{num(p, 'k2_per_step', '{:.0f}')}, NCCL kernels per step "
+                f"{num(p, 'nccl_calls', '{:.1f}')} taking {num(p, 'nccl_us', '{:.1f}')} device "
+                f"us ({p.get('replays_seen')} of {p.get('replays_run')} replays read)")
+
+    costs = " ".join(f"{v:.4f}" for v in r["cost_history"][: r["steps_done"]])
+    params_gap = {k: gap(r["params"][k], v) for k, v in rr["params"].items()}
+    print(f"  (a) particle round, P={agent.optimizer.num_particles} over {n} ranks: costs "
+          f"{costs}, {bit or 'within 2e-4'} against one card; final params' largest gap per "
+          f"leaf {({k: f'{v:.3e}' for k, v in params_gap.items()})}"
+          + ("" if not split else f"; witness (particles reversed / rolled on one card) "
+             f"{({k: f'{v:.3e}' for k, v in wgap.items()})}"), flush=True)
+    print(f"      one card: {step_line(one)}", flush=True)
+    for i, p in enumerate(prof):
+        print(f"      rank {i}: {step_line(p)}", flush=True)
+    rates = [o["farm"]["seed_steps_per_s"] for o in outs]
+    fg = gaps["farm"]
+    print(f"  (b) seed farm, {FARM_SEEDS} seeds over {n} seed group(s): bitwise the one-card "
+          f"farms of the same seed groups; against phase 7's 4-seed farm: costs within "
+          f"{fg['costs_rel']:.2e} relative, executed trials {fg['control_true']:.3e}, params "
+          f"{fg['params']:.3e}; seed-steps/s of the replays {sum(rates):.1f} over {n} card(s) "
+          f"({', '.join(f'{v:.1f}' for v in rates)} per rank) against "
+          f"{farms[FARM_SEEDS]['seed_steps_per_s']:.1f} on one card; steps "
+          f"{f1['logs'][-1]['steps_done'].tolist()}", flush=True)
+    if split:
+        g2 = gaps["farm2d"]
+        print(f"  (c) 2D farm on a ({a}, {b}) seed x particle mesh, against the one-card farms "
+              f"of its seed groups: costs within {g2['costs_rel']:.2e} relative, executed "
+              f"trials {g2['control_true']:.3e} (witness {g2['witness']['control_true']:.3e}), "
+              f"params {g2['params']:.3e} (witness "
+              f"{max(g2['witness']['params'].values()):.3e})", flush=True)
+    lane_gap = rel_gap(rs["restart_costs"], rsr["restart_costs"])
+    winner_gap = max(gap(rs["params"][k], v) for k, v in rsr["params"].items())
+    print(f"  (d) {MESH_RESTARTS} restart lanes on a ({a}, {b}) restart x particle mesh: winner "
+          f"{rs['restart_winner']} as on one card (lanes in batches of {MESH_RESTARTS // a}), "
+          f"lane costs {[round(float(v), 4) for v in rs['restart_costs']]} "
+          f"({bit or f'largest relative gap {lane_gap:.2e}'}), winner params' largest gap "
+          f"{winner_gap:.3e}", flush=True)
+    launches = {k: sum(o[c]["launches"][k] for o in outs for c in o if "launches" in o[c])
+                for k in ("fwd", "bwd")}
+    if min(launches.values()) == 0:
+        faults.append(f"the ranks launched no K1/K2: {launches}")
+    print(f"  K1/K2 launches of the {n} ranks: {launches}; per rank "
+          f"{[{k: sum(o[c]['launches'][k] for c in o) for k in ('fwd', 'bwd')} for o in outs]}",
+          flush=True)
+    print(f"  seconds per check in each rank: "
+          f"{[{c: round(o[c]['seconds'], 1) for c in o} for o in outs]}", flush=True)
+    print(json.dumps({"mesh": dict(
+        ranks=n, cards=visible, one_card=one, ranks_profile=prof, farm_seed_steps_per_s=rates,
+        farm_one_card_seed_steps_per_s=farms[FARM_SEEDS]["seed_steps_per_s"], farm_gaps=gaps,
+        round_params_gap=params_gap, round_params_witness=wgap, restart_lane_gap=lane_gap,
+        restart_winner_params_gap=winner_gap)}), flush=True)
+    for fault in faults:
+        print(f"  phase 16 fault: {fault}", flush=True)
+    if faults:
+        raise RuntimeError(f"phase 16: {len(faults)} disagreement(s) with the one-card runs")
+    return launches
+
+
 def kernel_ab(fp, dev, root):
     """K1/K2 of the checkout at ``root`` against this checkout's, built with
     the same flags and timed in turns (root / this / this / root) at the
@@ -2084,7 +2390,7 @@ def main():
     parser.add_argument("--kernel-ab", default=None, metavar="PATH",
                         help="time K1/K2 of the checkout at PATH against this one's instead")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases 2-15 to run after the build (default all)")
+                        help="comma-separated phases 2-16 to run after the build (default all)")
     parser.add_argument("--full-profile", action="store_true",
                         help="also profile the steps the default run only times or runs "
                              "(phases 9, 13, 14 (b) and 15; ~+4 min)")
@@ -2132,7 +2438,7 @@ def main():
         print(json.dumps({"ok": True, "device": device}))
         return 0
 
-    wanted = set(range(2, 16)) if args.phases is None else {int(v) for v in args.phases.split(",")}
+    wanted = set(range(2, 17)) if args.phases is None else {int(v) for v in args.phases.split(",")}
     paths, rec = [], None
     if 2 in wanted:
         t0 = time.perf_counter()
@@ -2145,6 +2451,7 @@ def main():
         cfg = cartpole.CartpoleConfig(seed=1)
         GRAPH_PATHS["flagship"] = agent_path(
             policy_step(cartpole.build(cfg, dev)[0], 6, cfg.T_exploration, fp, dev))
+        MESH_INPUTS["flagship"] = GRAPH_PATHS["flagship"].agent
         phase("3 flagship policy-optimization step", t0)
 
     if 4 in wanted:
@@ -2248,8 +2555,13 @@ def main():
         graph_phase(fp, dev)
         phase("15 loop: K iterations per host read against one, on five paths", t0)
 
+    if 16 in wanted:
+        t0 = time.perf_counter()
+        paths.append(mesh_phase(fp, dev))
+        phase(f"16 the mesh: {mesh_ranks()} NCCL rank(s) at full flagship width", t0)
+
     print(smi, flush=True)  # again beside the results, for logs that keep only the end
-    if rec is None or wanted != set(range(2, 16)):
+    if rec is None or wanted != set(range(2, 17)):
         print(json.dumps({"ok": True, "device": device}))
         return 0
     src = "mcpilco_tpu_torch/csrc/fused_predict.cu"

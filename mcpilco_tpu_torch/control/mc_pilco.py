@@ -99,8 +99,14 @@ class MCPilco:
         log_dir: Optional[str] = None,
         bucket: int = 64,
         fixed_initial_state: bool = False,
+        mesh=None,
     ):
         disable_tf32()
+        if mesh is not None:
+            # the policy optimization's particles over the mesh's "p" axis
+            # (trainer.PolicyOptimizer.mesh)
+            optimizer = dataclasses.replace(optimizer, mesh=mesh)
+        self.mesh = mesh
         self.device = torch.device(device)
         self.dt = dt
         self.model = model

@@ -50,6 +50,16 @@ its state is frozen while the others go on (the vmapped while-loop's rule).
 The lanes are the ``num_restarts`` policy inits of one optimization (which
 share one posterior) or the seeds of ``parallel.multiseed.SeedFarm`` (each
 with its own); one restart is one lane.
+
+With a ``mesh`` (``parallel/mesh.py``; one process per device) each rank
+rolls out its slice of the particles, drawn on the full logical shape from
+the same keys: the cost pieces (``models/costs.expected_cost``) and the
+policy gradient are summed over the particle axis ``"p"`` in the body,
+before Adam, so every rank reads the global cost and takes the same
+decisions, the same host reads and the same NaN re-samples.  On a
+``("r", "p")`` mesh each rank runs its share of the restart lanes under
+their global ids, and one all-gather of the lanes' metrics picks the
+winner, whose result is broadcast.
 """
 
 from __future__ import annotations
@@ -62,9 +72,11 @@ from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.costs import CostBase
 from ..ops import fused_predict as fp
+from ..parallel import mesh as mesh_mod
 from ..utils import prng
 from .rollout import InitialStateDistribution, RolloutEngine, RolloutNoise, stack_lanes
 
@@ -422,6 +434,38 @@ class PolicyOptimizer:
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
+    # A ``parallel.mesh.Mesh`` with a particle axis "p": the particles shard
+    # over it, the GP parameters, the posterior and the policy parameters
+    # replicate, and the cost pieces and the policy gradient are summed
+    # over "p" once per iteration.  With num_restarts > 1 a ("r", "p") mesh
+    # (``make_restart_particle_mesh``) also shards the restart lanes.  None:
+    # one device.
+    mesh: Optional[object] = None
+
+    def _particle_group(self):
+        """The process group of the ranks that hold this optimization's
+        other particle shards; None without a mesh."""
+        return None if self.mesh is None else self.mesh.group(mesh_mod.PARTICLE_AXIS)
+
+    def _local_particles(self) -> int:
+        if self.mesh is None:
+            return self.num_particles
+        n = self.mesh.shape[mesh_mod.PARTICLE_AXIS]
+        if self.num_particles % n:
+            raise ValueError(f"num_particles={self.num_particles} does not tile the mesh's {n} "
+                             "particle shards")
+        return self.num_particles // n
+
+    def _shard_noise(self, noise: RolloutNoise, lanes: bool) -> RolloutNoise:
+        """This rank's particles of the random numbers of a rollout drawn on
+        the full logical shape (``lanes``: a lane axis before the particles).
+        One lane's particle axes are where stacked lanes put the lane axis
+        (``_NOISE_LANE_AXIS``)."""
+        if self.mesh is None:
+            return noise
+        return RolloutNoise(*(None if t is None else
+                              mesh_mod.shard_particles(self.mesh, t, ax + int(lanes))
+                              for t, ax in zip(noise, _NOISE_LANE_AXIS)))
 
     def _rollout_cost(self, params, gp_params, posterior, keys, p_drop, trial_index,
                       noise: Optional[RolloutNoise] = None):
@@ -433,13 +477,14 @@ class PolicyOptimizer:
         """
         device = posterior.x_tr.device
         if noise is None:
-            noise = self.engine.draw_noise(keys, self.num_particles, self.horizon, p_drop, device,
-                                           init_dist=self.init_dist)
-        s0 = self.init_dist.sample(None, self.num_particles, device, eps=noise.init,
+            noise = self._shard_noise(self.engine.draw_noise(
+                keys, self.num_particles, self.horizon, p_drop, device, init_dist=self.init_dist),
+                lanes=True)
+        s0 = self.init_dist.sample(None, self._local_particles(), device, eps=noise.init,
                                    idx=noise.init_idx)
         res = self.engine.simulate(None, params, gp_params, posterior, s0, self.horizon,
                                    p_dropout=p_drop, noise=noise)
-        c, s = self.cost(res.states, res.inputs, trial_index)
+        c, s = self.cost(res.states, res.inputs, trial_index, group=self._particle_group())
         return c, (s, res.states, res.inputs)
 
     def monitor_update(self, mon: Monitor, step: torch.Tensor, dc: torch.Tensor):
@@ -505,25 +550,78 @@ class PolicyOptimizer:
         ``graph``, ``chunk``: see :meth:`optimize_lanes`.
         """
         R = max(int(self.num_restarts), 1)
-        inits = [policy_params]
-        if R > 1:
-            # lanes 1..R-1: fresh draws from a stream of their own
-            rkeys = prng.split(prng.fold(key, prng.STREAM_RESTARTS), R - 1)
-            inits += [self.engine.policy.reinit(policy_params, k) for k in rkeys]
+        lanes = self._restart_lanes(R)
+        if self.mesh is not None:
+            policy_params = mesh_mod.replicate(self.mesh, policy_params,
+                                               self.mesh.replica_axes())
+        inits = self.restart_inits(key, policy_params, R)
         stack = lambda ps: {k: torch.stack([p[k] for p in ps]) for k in policy_params}
         run = lambda ps, rids: self.optimize_lanes(
             [key] * len(rids), stack(ps), gp_params, posterior, num_opt_steps, lr0, p_dropout0,
             trial_index, rids=rids, noise_fn=noise_fn, graph=graph, chunk=chunk)
         if self.restart_vmap:
-            results, metric = run(inits, list(range(R)))
+            results, metric = run([inits[r] for r in lanes], lanes)
         else:
-            lanes = [run([p], [r]) for r, p in enumerate(inits)]
-            results = [res[0] for res, _ in lanes]
-            metric = np.concatenate([m for _, m in lanes])
+            runs = [run([p], [r]) for r, p in enumerate(inits)]
+            results = [res[0] for res, _ in runs]
+            metric = np.concatenate([m for _, m in runs])
         if R == 1:
             return results[0]
+        if len(lanes) < R:  # this rank's share of the lanes: the others' metrics
+            metric = mesh_mod.all_gather(
+                self.mesh, torch.as_tensor(metric, device=self.mesh.device),
+                mesh_mod.RESTART_AXIS).cpu().numpy()
         winner = int(np.argmin(np.where(np.isfinite(metric), metric, np.inf)))
-        return results[winner]._replace(restart_costs=metric, restart_winner=winner)
+        if len(lanes) < R:
+            own, i = divmod(winner, len(lanes))
+            result = self._broadcast_result(results[i], own)
+        else:
+            result = results[winner]
+        return result._replace(restart_costs=metric, restart_winner=winner)
+
+    def restart_inits(self, key, policy_params: dict, R: int) -> list:
+        """The R restart lanes' initial parameters: lane 0 starts from
+        ``policy_params``, lanes 1..R-1 from fresh draws of a stream of
+        their own."""
+        inits = [policy_params]
+        if R > 1:
+            rkeys = prng.split(prng.fold(key, prng.STREAM_RESTARTS), R - 1)
+            inits += [self.engine.policy.reinit(policy_params, k) for k in rkeys]
+        return inits
+
+    def _restart_lanes(self, R: int) -> list:
+        """The restart lanes this rank runs: all R, or on a mesh with a
+        restart axis its contiguous share (the JAX package's checks,
+        ``mcpilco_tpu/control/trainer.py:303-319``)."""
+        if self.mesh is None or mesh_mod.RESTART_AXIS not in self.mesh.axis_names:
+            return list(range(R))
+        shards = self.mesh.shape[mesh_mod.RESTART_AXIS]
+        if R == 1:
+            raise ValueError("mesh has a restart axis 'r' but num_restarts == 1; use a plain "
+                             "particle mesh (parallel.mesh.make_mesh) instead")
+        if R % shards:
+            raise ValueError(f"num_restarts={R} does not tile the mesh's restart axis "
+                             f"({shards} shards)")
+        if not self.restart_vmap:
+            raise ValueError("restart_vmap=False (sequential lanes) cannot shard a restart mesh "
+                             "axis; drop the 'r' axis or keep restart_vmap")
+        k = R // shards
+        r0 = self.mesh.index(mesh_mod.RESTART_AXIS) * k
+        return list(range(r0, r0 + k))
+
+    def _broadcast_result(self, res: OptResult, src: int) -> OptResult:
+        """The result of the rank at restart coordinate ``src`` on every rank
+        of its restart group (``res``: this rank's result of the same shapes)."""
+        scalars = torch.tensor([res.steps_done, res.reinit_count, res.final_lr,
+                                res.final_p_dropout], dtype=torch.float64)
+        tensors = (res.policy_params, res.cost_history, res.std_history, res.states, res.inputs,
+                   scalars)
+        params, cost, std, states, inputs, scalars = mesh_mod.broadcast(
+            self.mesh, tensors, mesh_mod.RESTART_AXIS, src)
+        steps, reinits, lr, p_drop = scalars.tolist()
+        return OptResult(policy_params=params, cost_history=cost, std_history=std,
+                         steps_done=int(steps), states=states, inputs=inputs,
+                         reinit_count=int(reinits), final_lr=lr, final_p_dropout=p_drop)
 
     def optimize_lanes(self, keys: List, policy_params: dict, gp_params, posterior,
                        num_opt_steps, lr0, p_dropout0, trial_index=0, rids=None,
@@ -565,12 +663,21 @@ class PolicyOptimizer:
         if chunk is not None and int(chunk) < 1:
             raise ValueError(f"chunk={chunk}: at least one iteration per host read")
         P, T, init = self.num_particles, self.horizon, self.init_dist
+        P_local = self._local_particles()
         p0 = float(p_dropout0)
+        if self.mesh is not None:
+            gp_params, posterior = mesh_mod.replicate(self.mesh, (gp_params, posterior),
+                                                      self.mesh.replica_axes())
+            params = mesh_mod.replicate(self.mesh, params, mesh_mod.PARTICLE_AXIS)
 
         def lane_noise(k, uniforms):
             """One lane's random numbers from its step key, on the host side
-            of the iteration; with ``uniforms`` the dropout draw as uniforms
-            (the body forms the mask at the lane's rate)."""
+            of the iteration, on the full logical shape and then this rank's
+            particles; with ``uniforms`` the dropout draw as uniforms (the
+            body forms the mask at the lane's rate)."""
+            return self._shard_noise(full_noise(k, uniforms), lanes=False)
+
+        def full_noise(k, uniforms):
             if noise_fn is None:
                 return self.engine.draw_noise(k, P, T, p0, dev, init_dist=init,
                                               keep_uniforms=uniforms)
@@ -593,7 +700,7 @@ class PolicyOptimizer:
             c0, (_, st0, in0) = self._rollout_cost(params, gp_params, posterior, None, p0,
                                                    trial_index, probe)
             buf = _Static.new(params, st0, in0, self.max_opt_steps,
-                              (T, L, P, policy.num_basis) if p0 > 0 else None)
+                              (T, L, P_local, policy.num_basis) if p0 > 0 else None)
             self._reset_monitor(buf, slice(None), lr0, p0)
             buf.lane["cost_prev"].copy_(torch.where(torch.isnan(c0), 0.0, c0))
             buf.lane["best_cost"].fill_(float("inf"))
@@ -605,7 +712,8 @@ class PolicyOptimizer:
             budget = int(chunk)
         else:
             budget = int(first_chunk) if first_chunk is not None else self._chunk_budget(L)
-        idle, chunk_index = 0, 0
+        idle, chunk_index, ran_total = 0, 0, 0
+        budget = self._agree(budget, ran_total)
         try:
             while True:
                 live = [i for i in range(L) if not lanes.done[i] and lanes.steps[i] < num_steps]
@@ -629,6 +737,7 @@ class PolicyOptimizer:
                             kt = lanes.key(i, lanes.steps[i] + j, lanes.retry[i] if j == 0 else 0)
                             buf.put_noise(i, lane_noise(kt, True))
                     ran = step()
+                    ran_total += 1
                     reads.record(j)
                     last = j
                 status = reads.read(last).copy()  # the chunk's one host read
@@ -650,11 +759,34 @@ class PolicyOptimizer:
                     if chunk_index > 0:
                         object.__setattr__(self, "_measured_rate", rate)
                     chunk_index += 1
+                budget = self._agree(budget, ran_total)
                 if on_read is not None:
                     on_read()
         finally:
             step.close()
+        if self.mesh is not None:  # the last rollouts of every particle
+            for name in ("states", "inputs"):
+                setattr(buf, name, mesh_mod.all_gather(self.mesh, getattr(buf, name),
+                                                       mesh_mod.PARTICLE_AXIS, dim=2))
         return self._lane_results(buf, lanes.steps, lanes.reinits)
+
+    def _agree(self, budget: int, iterations: int) -> int:
+        """Under a particle mesh, at the start of a call and after each read:
+        one chunk budget for every rank of the particle group (the largest:
+        each rank sizes it from its own clock), and a check that every rank
+        ran the device body as often (a rank that runs it once more would
+        wait forever in its collectives).  Without a mesh: ``budget``."""
+        group = self._particle_group()
+        if group is None:
+            return budget
+        t = torch.tensor([budget, iterations, -iterations], dtype=torch.int64,
+                         device=self.mesh.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        most, fewest = int(t[1]), -int(t[2])
+        if most != fewest:
+            raise RuntimeError(f"the ranks of a particle group ran the optimizer's device body "
+                               f"{fewest} to {most} times; they must run it equally often")
+        return int(t[0])
 
     def _body(self, buf: _Static, gp_params, posterior, trial_index, mask, num_steps) -> None:
         """One iteration of every lane, on the device: the rollout from
@@ -674,9 +806,13 @@ class PolicyOptimizer:
         cost, (std, states, inputs) = self._rollout_cost(buf.leaves, gp_params, posterior, None,
                                                          rate, trial_index, noise)
         names = list(buf.leaves)
-        grads = self._masked_grads(
-            dict(zip(names, torch.autograd.grad(cost.sum(), [buf.leaves[k] for k in names]))),
-            mask)
+        grads = torch.autograd.grad(cost.sum(), [buf.leaves[k] for k in names])
+        group = self._particle_group()
+        if group is not None:  # this rank's share of the gradient: sum the shares
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=group)
+            grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+        grads = self._masked_grads(dict(zip(names, grads)), mask)
         b1, b2, eps = self.adam_b1, self.adam_b2, self.adam_eps
         with torch.no_grad():
             cost, std = cost.detach(), std.detach()

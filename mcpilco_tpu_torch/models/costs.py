@@ -3,7 +3,8 @@
 A cost is a static config object with
 ``stage_costs(states [T,P,ds], inputs [T,P,du], trial_index) -> [T,P]``;
 :func:`expected_cost` reduces it to (sum_t mean_particles(c_t),
-sum_t std_particles(c_t)), as ``mcpilco_tpu/models/costs.py`` does.
+sum_t std_particles(c_t)), as ``mcpilco_tpu/models/costs.py`` does, over
+particle shards on several ranks too.
 """
 
 from __future__ import annotations
@@ -13,29 +14,54 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..utils import consts
 from .kernels import _as_tuple
 
 
-def expected_cost(stage: torch.Tensor):
+def expected_cost(stage: torch.Tensor, group=None):
     """Reduce [T, P] stage costs to (sum of means, sum of stds); [T, L, P]
     stage costs of L lanes reduce per lane, to two [L] tensors.
 
-    The particle std is the unbiased estimator (ddof=1) and is detached from
-    the gradient, as in the reference.
+    The particle std is the unbiased estimator (ddof=1), in two passes (the
+    squared deviations from the mean), and is detached from the gradient,
+    as in the reference.
+
+    ``group``: a process group whose ranks hold the other particle shards
+    (P is then their total).  The sums over particles are all-reduced, so
+    every rank holds the same bits of the mean, while its gradient reaches
+    this rank's particles only (the ranks sum the gradients); the deviations
+    are taken from that global mean.  A group of one rank gives the bits of
+    ``group=None``.
     """
-    mean_t = torch.mean(stage, dim=-1)
-    std_t = torch.std(stage, dim=-1, correction=1)
-    return torch.sum(mean_t, dim=0), torch.sum(std_t.detach(), dim=0)
+    local = torch.sum(stage, dim=-1)  # [T, *L]
+    P = stage.shape[-1] * (1 if group is None else dist.get_world_size(group))
+    if group is None:
+        mean_t = total_mean = local / P
+    else:
+        total = local.detach().clone()
+        dist.all_reduce(total, group=group)
+        total_mean = total / P
+        # the value is total_mean's exactly (the added term is 0), the
+        # gradient local's
+        mean_t = total_mean + (local - local.detach()) / P
+    dev = stage.detach() - total_mean.detach()[..., None]
+    sq = torch.sum(dev * dev, dim=-1)
+    if group is not None:
+        dist.all_reduce(sq, group=group)
+    std_t = torch.sqrt(sq / (P - 1))
+    return torch.sum(mean_t, dim=0), torch.sum(std_t, dim=0)
 
 
 class CostBase:
     def stage_costs(self, states, inputs, trial_index=0):
         raise NotImplementedError
 
-    def __call__(self, states, inputs, trial_index=0):
-        return expected_cost(self.stage_costs(states, inputs, trial_index))
+    def __call__(self, states, inputs, trial_index=0, group=None):
+        """(expected cost, particle std) of a rollout; ``group``: see
+        :func:`expected_cost`."""
+        return expected_cost(self.stage_costs(states, inputs, trial_index), group)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -25,8 +25,16 @@ lanes through the S-lane loop, keeping each seed's winner.
 
 Scope: the plants of the JAX package's farm: ODE plants (the flagship and
 multi-init cart-pole, 4PMS, Furuta) on the device, any other plant with a
-``rollout()`` on the host.  SOR, a host plant with offline filtering, a
-plant without ``rollout()`` and a device mesh raise, as in the JAX farm.
+``rollout()`` on the host.  SOR, a host plant with offline filtering and a
+plant without ``rollout()`` raise, as in the JAX farm.
+
+With a ``mesh`` (``parallel/mesh.py``, one process per device), seed group
+g of the mesh's seed axis (``"s"``, or a 1D mesh's one axis) farms its own
+``len(seeds) / groups`` seeds, under their own keys, and ``run`` gathers
+every group's results in seed order on every rank.  On a shared 2D
+``("s", "p")`` mesh each group's optimizer also shards its particles over
+``"p"``.  A group computes what one farm of its own seeds computes, bit
+for bit on the same device: the groups exchange nothing before the results.
 
 The optimizer reads the lanes back once per chunk of iterations, sized as
 the JAX farm sizes its chunks: the first by ``first_chunk_steps`` (the
@@ -51,6 +59,7 @@ from ..models import sod as sod_mod
 from ..models.gp import GPData, first_finite, tree_map
 from ..ops import linalg
 from ..utils import prng
+from . import mesh as mesh_mod
 
 JITTER_SCALES = (1.0, 10.0, 100.0)
 
@@ -106,6 +115,8 @@ class SeedFarm:
     ``policy_init_fn(key) -> params`` initializes one seed's policy from its
     root key (e.g. ``lambda k: cartpole.policy_init(cfg, agent.policy, k,
     device)``); by default the policy's own ``init_params``.
+    ``mesh`` shards the seeds over the mesh's seed groups (the module's
+    docstring); ``local_seeds`` are this rank's.
     ``chunk_steps_override`` fixes the optimizer's iterations per host read
     for every chunk (profiling); by default the first chunk follows
     :func:`first_chunk_steps` and the later ones adapt.  ``progress_cb`` (no
@@ -134,10 +145,18 @@ class SeedFarm:
                              "such seeds one at a time")
         if getattr(a, "sor", None) is not None:
             raise ValueError("the seed farm has no SOR path; train SOR seeds one at a time")
-        if self.mesh is not None:
-            raise ValueError("the seed farm runs on one card: no mesh")
+        m = a.optimizer.mesh
+        if m is not None and not (m is self.mesh and mesh_mod.SEED_AXIS in m.axis_names
+                                  and mesh_mod.PARTICLE_AXIS in m.axis_names):
+            raise ValueError(
+                "the seed farm composes with particle-axis sharding only on a shared 2D "
+                "('s', 'p') mesh (parallel.mesh.make_seed_particle_mesh); a plain particle "
+                "mesh on the optimizer conflicts with the farm's seed axis")
+        # this rank's seeds: its seed group's share, or all of them
+        self.local_seeds = (list(self.seeds) if self.mesh is None
+                            else mesh_mod.shard_seeds(self.mesh, self.seeds))
         dev = a.device
-        self.keys = [prng.root_key(s) for s in self.seeds]
+        self.keys = [prng.root_key(s) for s in self.local_seeds]
         init = self.policy_init_fn or (lambda k: a.policy.init_params(
             prng.fold(prng.stream(k, prng.STREAM_POLICY_INIT), 0), device=dev))
         self.policy_params = _stack([init(k) for k in self.keys])
@@ -146,7 +165,7 @@ class SeedFarm:
         self.gp_params = None
         self.posterior = None
         self.num_collections = 0
-        S = len(self.seeds)
+        S = len(self.local_seeds)
         self.gp_x = np.zeros((S, 0, a.model.gp_input_dim), np.float32)
         self.gp_y = np.zeros((S, a.gp.num_heads, 0), np.float32)
 
@@ -233,7 +252,7 @@ class SeedFarm:
         """Re-init and train every seed's GP heads in one batched fit, then
         build the posteriors.  Returns each seed's final MLL [S]."""
         a = self.agent
-        S = len(self.seeds)
+        S = len(self.local_seeds)
         p0 = a._init_gp_params()
         params = tree_map(lambda t: t.expand(S, *t.shape).clone(), p0)
         data = self._padded_data()
@@ -327,7 +346,7 @@ class SeedFarm:
             keys, lane_params, self.gp_params, self.posterior, opts.opt_steps,
             opts.learning_rate, opts.p_dropout, trial_index, rids=[lane_id] * len(keys),
             chunk=self.chunk_steps_override,
-            first_chunk=first_chunk_steps(opt.chunk_steps, len(self.seeds), opt.horizon),
+            first_chunk=first_chunk_steps(opt.chunk_steps, len(self.local_seeds), opt.horizon),
             on_read=self._tick)
 
     # ---------------------------------------------------------- main loop
@@ -339,7 +358,7 @@ class SeedFarm:
         """``MCPilco.reinforce`` for every seed at once."""
         for e in range(num_explorations):
             if verbose:
-                print(f"[seed-farm] exploration {e} ({len(self.seeds)} seeds)")
+                print(f"[seed-farm] exploration {e} ({len(self.local_seeds)} seeds)")
             self.collect(T_exploration, trial_index=e, exploration=True)
         logs: List[FarmTrialLog] = []
         for trial in range(num_trials):
@@ -352,7 +371,7 @@ class SeedFarm:
             cost_hist, steps, reinits = self.improve_policy(
                 policy_opt_options[min(trial, len(policy_opt_options) - 1)], trial)
             if verbose:
-                last = cost_hist[np.arange(len(self.seeds)), np.maximum(steps - 1, 0)]
+                last = cost_hist[np.arange(len(self.local_seeds)), np.maximum(steps - 1, 0)]
                 print(f"[seed-farm] trial {trial}: opt steps med {int(np.median(steps))}, final "
                       f"cost med {np.median(last):.2f}, reinits {int(reinits.sum())} "
                       f"({time.time() - t1:.1f}s, "
@@ -364,5 +383,25 @@ class SeedFarm:
                                      reinit_count=reinits, mll_last=mll_last,
                                      control_true=true_states, control_inputs=inputs,
                                      wall_clock_s=time.time() - t0))
+        if self.mesh is not None:
+            return self._gathered(logs)
         return FarmResult(seeds=np.asarray(list(self.seeds)), trial_logs=logs,
                           policy_params=self.policy_params)
+
+    def _gathered(self, logs: List[FarmTrialLog]) -> FarmResult:
+        """Every seed group's logs and policies, in seed order (the seed
+        axis's coordinate order), on every rank."""
+        mine = ([log._asdict() for log in logs],
+                {k: v.cpu().numpy() for k, v in self.policy_params.items()})
+        parts = mesh_mod.gather_objects(self.mesh, mine, mesh_mod.seed_axis(self.mesh))
+        trial_logs = []
+        for t in range(len(logs)):
+            rows = [p[0][t] for p in parts]
+            trial_logs.append(FarmTrialLog(**{
+                f: (max(r[f] for r in rows) if f == "wall_clock_s"
+                    else np.concatenate([r[f] for r in rows])) for f in FarmTrialLog._fields}))
+        dev = self.agent.device
+        params = {k: torch.as_tensor(np.concatenate([p[1][k] for p in parts]), device=dev)
+                  for k in self.policy_params}
+        return FarmResult(seeds=np.asarray(list(self.seeds)), trial_logs=trial_logs,
+                          policy_params=params)

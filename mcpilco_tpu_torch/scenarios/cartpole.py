@@ -107,8 +107,11 @@ def policy_init(cfg: CartpoleConfig, policy, key, device):
     return random_policy_params(policy, key, device, cfg.num_basis, cfg.u_max, scale)
 
 
-def build(cfg: CartpoleConfig, device="cuda") -> tuple:
-    """Returns (MCPilco, reinforce_kwargs) with every tensor on ``device``."""
+def build(cfg: CartpoleConfig, device="cuda", mesh=None) -> tuple:
+    """Returns (MCPilco, reinforce_kwargs) with every tensor on ``device``.
+    ``mesh`` (a ``parallel.mesh.Mesh`` with a particle axis) shards the
+    policy optimization's particles over its ranks (each on its own
+    ``device``): see ``trainer.PolicyOptimizer.mesh``."""
     disable_tf32()
     device = torch.device(device)
     key = prng.root_key(cfg.seed)
@@ -184,6 +187,7 @@ def build(cfg: CartpoleConfig, device="cuda") -> tuple:
         sod=sod_mod.SODConfig(threshold_mode="relative", threshold=(0.5,)) if cfg.use_sod else None,
         seed=cfg.seed,
         log_dir=cfg.log_dir,
+        mesh=mesh,
     )
     agent.policy_params = policy_init(cfg, policy, key, device)
     agent.scenario_name = "cartpole"

@@ -163,9 +163,9 @@ def jax_rollout_noise(key, P, T, G, num_basis, p_dropout, init_dim=None, n_pos=N
                               meas=meas)
 
 
-# dataclass fields only the JAX package has (its mesh, scan unroll, Pallas
-# switch and NaN-branch lowering)
-JAX_ONLY_FIELDS = {"scan_unroll", "mesh", "nan_branch_style", "use_pallas"}
+# dataclass fields only the JAX package has (its scan unroll, Pallas switch
+# and NaN-branch lowering)
+JAX_ONLY_FIELDS = {"scan_unroll", "nan_branch_style", "use_pallas"}
 
 
 def assert_same_config(j, t, path="agent"):

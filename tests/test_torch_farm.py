@@ -10,6 +10,7 @@ control trial, those of tests/test_multiseed.py.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -121,7 +122,10 @@ class _NoRolloutPlant:
 def test_farm_rejects_what_it_does_not_cover(case):
     """What the JAX package's farm refuses: SOR, a host plant with offline
     filtering (``offline_filtering``), a plant without rollout()
-    (``host_plant``), a mesh."""
+    (``host_plant``), an optimizer whose particle mesh the farm does not
+    share (``mesh``: the farm composes with particle sharding only on one
+    shared 2D ("s", "p") mesh; tests/test_torch_mesh.py runs the meshes it
+    takes)."""
     if case == "offline_filtering":
         agent, _ = pms.build(pms.CartpolePMSConfig().smoke(), "cpu")
         agent.plant = _HostPlant()
@@ -133,7 +137,8 @@ def test_farm_rejects_what_it_does_not_cover(case):
     elif case == "host_plant":
         agent.plant = _NoRolloutPlant()
     elif case == "mesh":
-        kw["mesh"] = object()
+        particle_mesh = types.SimpleNamespace(axis_names=("p",), shape={"p": 2})
+        agent.optimizer = dataclasses.replace(agent.optimizer, mesh=particle_mesh)
     match = {"sor": "SOR", "offline_filtering": "offline filtering for a host plant",
              "host_plant": "rollout", "mesh": "mesh"}[case]
     with pytest.raises(ValueError, match=match):
