@@ -159,11 +159,16 @@ flagship, against the uncaptured body (``graph=False``).
     printed before the phase fails.  With one card it says that the checks
     over 2-4 cards did not run.  One JSON line ``{"mesh": ...}``.
 
-Phase 2 also holds K1/K2 in their wide path (input dims above 8, walked in
-chunks of 8) against their plain versions at the Furuta shapes ('se', D=12,
-G=2, P=400, M in {192, 960}) and the UR5 shape ('se+p2', D=24, G=6, P=200,
-M=448), with device times and bounds, and ``MultiGP.predict`` on the card
-at those widths (K1/K2 launched, against ``_predict_plain``).  It also
+Phase 2 also holds K1/K2 in their wide path (input dims above 8: K1's
+generation kernel ``k1_gen`` and GEMM, K2-wide) against their plain versions,
+and ``k1_gen`` alone (``fused_gram_gen``) against ``reference_gram_gen``, at
+the Furuta shapes ('se', D=12, G=2, P=400, M in {192, 960}) and the UR5
+shape ('se+p2', D=24, G=6, P=200, M=448), with device times, bounds and the
+blocks of ``wide_plan``; at its edges (``WIDE_EDGES``: D=10, 17, 32, P=1
+and 37, M=37 and 1024) against a float64 evaluation of the plain versions
+(``check_edge``); and ``MultiGP.predict`` on the card at the main
+paths' widths (K1, its generation pass and K2 launched once each, against
+``_predict_plain``).  It also
 holds the lane-batched K1/K2 (L in {1, 4} at the flagship and
 4PMS shapes, L=3 at M=37, whose lane strides are not 16-byte aligned, L=4
 at the farms' M=128 in both modes, L=4 in the wide path at 'se' D=12
@@ -200,8 +205,17 @@ the flagship's chunked and chunk=1 steps there); it adds ~4 minutes.
     python3 chip_smoke.py --kernel-ab PATH
 
 builds the kernels of the checkout at PATH beside this checkout's and times
-K1/K2 at the flagship and 4PMS shapes for PATH / this / this / PATH, with
-both builds' ``ptxas`` reports.
+K1/K2 for PATH / this / this / PATH (shapes in order, then reversed) at the
+flagship and 4PMS shapes (the flagship's also at P=1600 and 3200) and at
+phase 2's wide shapes ('se' D=12 M=192 and 960, UR5's 'se+p2' D=24, 'se'
+D=12 L=4 M=192): ``AB_WINDOWS`` profiled
+windows per kernel and turn (device us per kernel, windows that lost
+records refused), back-to-back CUDA-event times, the SM clock and power
+beside each shape, K1 with the L2 flushed before each launch, the plain
+versions once; it fails unless both builds' narrow outputs are bitwise
+equal, and prints the largest difference between them at the wide shapes.
+Both builds' ``ptxas`` reports; the rows also go to
+``chiprun_out/kernel_ab.json``.
 
     python3 chip_smoke.py --farm-sweep 1,2,4,8
 
@@ -254,14 +268,27 @@ LANE_CASES = ((True, 400, M_FLAGSHIP, (1, 4)), (False, 400, M_PMS, (1, 4)),
 # kernels line's by_shape rows: the 4PMS farm's and the wide path's at L=4
 LANE_ROWS = {(False, 400, M_SMALL, 4, 6), (False, 400, 192, 4, 12)}
 FARM_SEEDS = 4
+# --kernel-ab's shapes (use_poly, G, P, M, D, L): the flagship's and 4PMS's,
+# the flagship's at bench_particle_scaling's P=1600 and 3200, phase 2's wide
+# shapes and the wide path with lanes; profiled windows per kernel, shape
+# and turn
+AB_SHAPES = ((True, G, 400, M_FLAGSHIP, D, 1), (False, G, 400, M_PMS, D, 1),
+             (True, G, 1600, M_FLAGSHIP, D, 1), (True, G, 3200, M_FLAGSHIP, D, 1),
+             (False, 2, 400, 192, 12, 1), (False, 2, 400, 960, 12, 1),
+             (True, 6, 200, 448, 24, 1), (False, 2, 400, 192, 12, 4))
+AB_WINDOWS = 2
 # the out-tag of phase 12's subprocess seeds
 JOBS_TAG = "chip_smoke_jobs"
 # phase 7's chunk_steps_override: the 9 steps after the uncaptured first
 # iteration in chunks of 4, 4 and 1
 FARM_CHUNK = 4
 # the wide path's shapes: (use_poly, G, P, M, D); the Furuta SE posterior at
-# its first and sixth trial, and UR5's SE+P(2)
+# its first and sixth trial, and UR5's SE+P(2); and, checked against float64
+# (check_edge) but not timed, its edges: D % 4 != 0 (4-byte staging), ragged
+# P and M (M % 4 != 0: F copied 4 bytes at a time), one particle, the widest
+# D
 WIDE_CASES = ((False, 2, 400, 192, 12), (False, 2, 400, 960, 12), (True, 6, 200, 448, 24))
+WIDE_EDGES = ((True, 2, 37, 37, 10), (False, 3, 1, 100, 17), (True, 2, 400, 1024, 32))
 # phase 13's depth: the UR5 step profiles' host window and the HIL path's
 # optimizer steps (a UR5 step takes 2-3.6 s on the host)
 UR5_STEPS = 3
@@ -332,23 +359,38 @@ def device_us(fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # a profiled window now and then comes back without device records:
-    # profile the next one
-    for _ in range(3):
+    # a profiled window now and then comes back short of device records: a
+    # kernel's time is its records' mean times its launches per call (its
+    # records over ``iters``, rounded), and a window that lost more than a
+    # tenth of a kernel's records is refused and profiled again (dividing a
+    # short window's sum by ``iters`` reads the kernel low)
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        per = {}
+        total, count = {}, {}
         for name, us in device_records(prof):
-            per[name] = per.get(name, 0.0) + us / iters
-        if per:
+            total[name] = total.get(name, 0.0) + us
+            count[name] = count.get(name, 0) + 1
+        calls = {k: max(1, round(n / iters)) * iters for k, n in count.items()}
+        per = {k: total[k] / n * calls[k] / iters for k, n in count.items()}
+        short = {k: n for k, n in count.items() if abs(n - calls[k]) > 0.1 * calls[k]}
+        if per and not short:
             return per
-    raise RuntimeError("torch.profiler recorded no kernel on the card in 3 windows")
+        print(f"  [profile] kernel window refused: {len(count)} kernels, records per kernel "
+              f"{count} for {iters} calls", flush=True)
+    raise RuntimeError("torch.profiler recorded no whole kernel window on the card in 5 tries")
 
 
 def named_us(per, name):
     return sum(t for k, t in per.items() if name in k)
+
+
+def k1_us(per):
+    """K1's kernels in a call's ``device_us`` record, its partial sums'
+    left out: ``k1_forward`` (narrow), or ``k1_gen`` + ``k1_forward_wide``."""
+    return named_us(per, "k1_forward") + named_us(per, "k1_gen")
 
 
 def max_err(a, b):
@@ -396,9 +438,65 @@ def check_case(fp, use_poly, P, M, dev, G=G, D=D):
     return e_fwd, e_bwd
 
 
+def check_edge(fp, use_poly, P, M, dev, G, D):
+    """K1 and K2 at an edge of the wide path (``WIDE_EDGES``), each output held
+    against a float64 evaluation of the plain versions: no farther from it
+    than the float32 plain version is, within 4x plus 1e-6; and two calls
+    bitwise equal.  At 'se+p2' D=32 M=1024 the dx* of ``kernel_inputs``
+    reach ~1e3 and the float32 plain version itself lies ~3e-4 from float64,
+    so against it an entry near 0 can miss GRAD_TOL by summation order
+    alone.  Returns the max errors against the plain version (K1, K2)."""
+    args = kernel_inputs(P, M, seed=P + M + 10 * use_poly, dev=dev, G=G, D=D)
+    wk, wq = cotangents(P, dev, G)
+    out = fp.fused_gram_contract(*args, use_poly, return_kf=True)
+    dx = fp.fused_gram_contract_bwd_xstar(*args, out[2], wk, wq, use_poly)
+    again = fp.fused_gram_contract(*args, use_poly, return_kf=True)
+    dx_again = fp.fused_gram_contract_bwd_xstar(*args, again[2], wk, wq, use_poly)
+    ref = fp.reference_gram_contract(*args, use_poly, return_kf=True)
+    dx_r = fp.reference_gram_contract_bwd_xstar(*args, ref[2], wk, wq, use_poly)
+    a64 = [t.double() for t in args]
+    r64 = fp.reference_gram_contract(*a64, use_poly, return_kf=True)
+    dx64 = fp.reference_gram_contract_bwd_xstar(*a64, r64[2], wk.double(), wq.double(),
+                                                use_poly)
+    torch.cuda.synchronize()
+    kind = f"{'se+p2' if use_poly else 'se'} D={D} G={G} P={P} M={M}"
+    errs = []
+    for name, got, plain, exact in zip(("kalpha", "quad", "kF", "dx*"), (*out, dx),
+                                       (*ref, dx_r), (*r64, dx64)):
+        e_k, e_p = max_err(got.double(), exact), max_err(plain.double(), exact)
+        errs.append(f"{name} {e_k:.3e} (plain {e_p:.3e})")
+        if not e_k <= 4 * e_p + 1e-6:
+            raise RuntimeError(f"edge {kind}: the kernel's {name} is {e_k:.3e} from float64, "
+                               f"the plain version's {e_p:.3e}")
+    if not all(torch.equal(a, b) for a, b in zip((*out, dx), (*again, dx_again))):
+        raise RuntimeError(f"edge {kind}: two calls on the same inputs differ")
+    print(f"  edge {kind}: against float64 {', '.join(errs)} | bitwise equal across calls",
+          flush=True)
+    return (max(max_err(a, b) for a, b in zip(out, ref)), max_err(dx, dx_r))
+
+
+def check_gen(fp, use_poly, P, M, dev, G, D):
+    """The wide path's generation kernel alone (``fused_gram_gen``: the
+    masked k* and kalpha) against ``reference_gram_gen`` at FWD_TOL, on
+    phase 2's inputs of that shape; returns the max error."""
+    args = kernel_inputs(P, M, seed=P + M + 10 * use_poly, dev=dev, G=G, D=D)
+    gen_in = (*args[:8], args[9])
+    got = fp.fused_gram_gen(*gen_in, use_poly)
+    want = fp.reference_gram_gen(*gen_in, use_poly)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **FWD_TOL)
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    print(f"  gen {'se+p2' if use_poly else 'se'} D={D} G={G} P={P} M={M}: k* and kalpha "
+          f"against reference_gram_gen, max err {err:.3e}", flush=True)
+    return err
+
+
 def time_kernels(fp, use_poly, M, dev, P=400, G=G, D=D):
     """K1 (as the main path calls it, saving kF) and K2 against their plain
-    versions: CUDA-event and device times, in ms."""
+    versions, and above 8 dims the generation kernel alone against its
+    twin: CUDA-event and device times, in ms.  K1's kernel time holds its
+    generation pass above 8 dims (``gen_kernel`` apart)."""
     args = kernel_inputs(P, M, seed=M + 10 * use_poly, dev=dev, G=G, D=D)
     wk, wq = cotangents(P, dev, G)
     kf = fp.fused_gram_contract(*args, use_poly, return_kf=True)[2]
@@ -409,13 +507,19 @@ def time_kernels(fp, use_poly, M, dev, P=400, G=G, D=D):
         k2=lambda: fp.fused_gram_contract_bwd_xstar(*args, kf, wk, wq, use_poly),
         k2_plain=lambda: fp.reference_gram_contract_bwd_xstar(*args, kf_r, wk, wq, use_poly),
     )
+    if D > fp.NARROW_D:
+        fns.update(gen=lambda: fp.fused_gram_gen(*args[:8], args[9], use_poly),
+                   gen_plain=lambda: fp.reference_gram_gen(*args[:8], args[9], use_poly))
     events = {k: cuda_ms(fn) for k, fn in fns.items()}
     per = {k: device_us(fn) for k, fn in fns.items()}
     dev_ms = {k: 1e-3 * sum(p.values()) for k, p in per.items()}
-    dev_ms["k1_kernel"] = 1e-3 * named_us(per["k1"], "k1_forward")
+    dev_ms["k1_kernel"] = 1e-3 * k1_us(per["k1"])
+    dev_ms["gen_kernel"] = 1e-3 * named_us(per["k1"], "k1_gen")
     dev_ms["k2_kernel"] = 1e-3 * named_us(per["k2"], "k2_backward_xstar")
     kind = ("se+p2" if use_poly else "se") + ("" if D == 6 else f" D={D} G={G}")
-    print(f"  time {kind:5s} P={P} M={M}, device ms: K1 kernel {dev_ms['k1_kernel']:.4f} "
+    gen = (f" (its generation {dev_ms['gen_kernel']:.4f}; alone {dev_ms['gen']:.4f}, plain "
+           f"{dev_ms['gen_plain']:.4f})" if "gen" in fns else "")
+    print(f"  time {kind:5s} P={P} M={M}, device ms: K1 kernel {dev_ms['k1_kernel']:.4f}{gen} "
           f"(call {dev_ms['k1']:.4f}) plain {dev_ms['k1_plain']:.4f} | K2 kernel "
           f"{dev_ms['k2_kernel']:.4f} (call {dev_ms['k2']:.4f}) plain {dev_ms['k2_plain']:.4f}; "
           f"back to back (CUDA events): K1 {events['k1']:.4f} plain {events['k1_plain']:.4f} | "
@@ -428,7 +532,8 @@ def check_kernels(fp, dev):
     per-kernel records for the kernels line."""
     from mcpilco_tpu_torch.utils.profiling import bound
 
-    rec = {"fwd": {"max_abs_err": 0.0}, "bwd": {"max_abs_err": 0.0}}
+    rec = {"fwd": {"max_abs_err": 0.0}, "bwd": {"max_abs_err": 0.0},
+           "gen": {"max_abs_err": 0.0, "by_shape": []}}
     for use_poly in (False, True):
         for P in SWEEP_P:
             for M in SWEEP_M:
@@ -448,20 +553,35 @@ def check_kernels(fp, dev):
     for key in rec:
         rec[key]["by_shape"] = []
     for use_poly, g, P, M, d in WIDE_CASES:
-        errs = check_case(fp, use_poly, P, M, dev, G=g, D=d)
+        errs = (*check_case(fp, use_poly, P, M, dev, G=g, D=d),
+                check_gen(fp, use_poly, P, M, dev, G=g, D=d))
         t = time_kernels(fp, use_poly, M, dev, P=P, G=g, D=d)
         shape = f"{'se+p2' if use_poly else 'se'} D={d} G={g} P={P} M={M}"
         for key, work, kernel, err in (("fwd", fp.k1_work, "k1", errs[0]),
-                                       ("bwd", fp.k2_work, "k2", errs[1])):
+                                       ("bwd", fp.k2_work, "k2", errs[1]),
+                                       ("gen", fp.gen_work, "gen", errs[2])):
             ms, by = bound(work(1, P, M, use_poly, g, d))
             rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"], err)
             rec[key]["by_shape"].append(dict(shape=shape, ms=t[f"{kernel}_kernel"],
                                              plain_ms=t[f"{kernel}_plain"], bound_ms=ms,
                                              bound_by=by, max_abs_err=err))
-        k1, k2 = fp.launch_blocks(g, P, M)
+        plan = fp.wide_plan(g, P, M)
+        blocks = {k: v["blocks"] for k, v in plan.items() if k != "Pp"}
         print(f"  wide {shape}: bound K1 {rec['fwd']['by_shape'][-1]['bound_ms']:.4f} ms, "
               f"K2 {rec['bwd']['by_shape'][-1]['bound_ms']:.4f} ms "
-              f"({rec['fwd']['by_shape'][-1]['bound_by']}); blocks K1 {k1}, K2 {k2}", flush=True)
+              f"({rec['fwd']['by_shape'][-1]['bound_by']}), generation "
+              f"{rec['gen']['by_shape'][-1]['bound_ms']:.4f} ms "
+              f"({rec['gen']['by_shape'][-1]['bound_by']}); blocks per launch {blocks} "
+              f"({fp.SMS} SMs), tiles {[v['tile'] for k, v in plan.items() if k != 'Pp']}",
+              flush=True)
+    for use_poly, g, P, M, d in WIDE_EDGES:
+        errs = (*check_edge(fp, use_poly, P, M, dev, G=g, D=d),
+                check_gen(fp, use_poly, P, M, dev, G=g, D=d))
+        for key, err in zip(("fwd", "bwd", "gen"), errs):
+            rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"], err)
+    # the generation kernel's own row: UR5's shape, the widest main path's
+    rec["gen"].update({k: v for k, v in rec["gen"]["by_shape"][-1].items()
+                       if k in ("ms", "plain_ms", "bound_ms", "bound_by")}, library_ms=None)
     lane_errs, lane_rows = check_lanes(fp, dev)
     for key, extra in zip(("fwd", "bwd"), lane_rows):
         rec[key]["by_shape"] += extra
@@ -512,8 +632,8 @@ def check_lanes(fp, dev):
                 errs[1] = max(errs[1], max_err(dx1, dxr))
             worst = [max(w, e) for w, e in zip(worst, errs)]
             per_us = {
-                "k1": named_us(device_us(lambda: fp.fused_gram_contract(
-                    *args, use_poly, return_kf=True)), "k1_forward"),
+                "k1": k1_us(device_us(lambda: fp.fused_gram_contract(
+                    *args, use_poly, return_kf=True))),
                 "k2": named_us(device_us(lambda: fp.fused_gram_contract_bwd_xstar(
                     *args, kf, wk, wq, use_poly)), "k2_backward_xstar"),
             }
@@ -523,7 +643,8 @@ def check_lanes(fp, dev):
                   f"launch; max err K1 {errs[0]:.3e} K2 {errs[1]:.3e} | device us per launch: "
                   f"K1 {per_us['k1']:.2f} (L x L=1: {L * one_us['k1']:.2f}, bound "
                   f"{1e3 * b1[0]:.2f}), K2 {per_us['k2']:.2f} (L x L=1: {L * one_us['k2']:.2f}, "
-                  f"bound {1e3 * b2[0]:.2f}); blocks {fp.launch_blocks(g, P, M, L)}", flush=True)
+                  f"bound {1e3 * b2[0]:.2f}); blocks {fp.launch_blocks(g, P, M, L, d)}",
+                  flush=True)
             if (use_poly, P, M, L, d) in LANE_ROWS:
                 plain = {
                     "k1": 1e-3 * sum(device_us(lambda: fp.reference_gram_contract(
@@ -631,8 +752,10 @@ def check_predict_wide(dev):
             mean, var = fn(params, post, xs)
             grad = torch.autograd.grad(torch.sum(wk * mean) + torch.sum(wq * var), xs)[0]
             torch.cuda.synchronize()
-            out[name] = (mean.detach(), var.detach(), grad, dict(fp.launches))
-        if out["predict"][3] != {"fwd": 1, "bwd": 1} or out["plain"][3] != {"fwd": 0, "bwd": 0}:
+            out[name] = (mean.detach(), var.detach(), grad,
+                         dict(fp.launches, **fp.gen_launches))
+        if (out["predict"][3] != {"fwd": 1, "bwd": 1, "gen": 1}
+                or out["plain"][3] != {"fwd": 0, "bwd": 0, "gen": 0}):
             raise RuntimeError(f"D={d}: predict launched {out['predict'][3]}, the plain path "
                                f"{out['plain'][3]}")
         for i, tol in ((0, FWD_TOL), (1, FWD_TOL), (2, GRAD_TOL)):
@@ -641,7 +764,8 @@ def check_predict_wide(dev):
                 max_err(out["predict"][2], out["plain"][2])]
         worst = [max(w, e) for w, e in zip(worst, errs)]
         print(f"  predict {'se+p2' if use_poly else 'se'} D={d} G={g} P={P} M={M} on the card: "
-              f"K1/K2 launched once each; against _predict_plain max err mean/var "
+              f"K1 (with its generation pass) and K2 launched once each; against "
+              f"_predict_plain max err mean/var "
               f"{errs[0]:.3e}, x* gradient {errs[1]:.3e}", flush=True)
     return tuple(worst)
 
@@ -684,7 +808,7 @@ def time_predicts(dev):
         print(f"  predict {label} P=400 M={M}, device ms per fwd+bwd: _predict_plain "
               f"{1e-3 * sum(per['plain'].values()):.4f} | _predict_fused "
               f"{1e-3 * sum(per['fused'].values()):.4f} (K1 "
-              f"{1e-3 * named_us(per['fused'], 'k1_forward'):.4f}, K2 "
+              f"{1e-3 * k1_us(per['fused']):.4f}, K2 "
               f"{1e-3 * named_us(per['fused'], 'k2_backward_xstar'):.4f})", flush=True)
 
 
@@ -860,6 +984,11 @@ def main_path(built, fp):
         print(f"  trial {i}: {lg.steps_done} steps, cost {lg.cost_history[0]:.3f} -> "
               f"{lg.cost_history[-1]:.3f}, {1e3 * lg.wall_clock_s / lg.steps_done:.2f} ms/step",
               flush=True)
+    launches.update(fp.gen_launches)
+    wide = kernels and agent.posterior.x_tr.shape[-1] > fp.NARROW_D
+    if launches["gen"] != (launches["fwd"] if wide else 0):
+        raise RuntimeError(f"the generation kernel's launches {launches} do not match the "
+                           f"path's input dims ({'above' if wide else 'at most'} 8)")
     print(f"  launches in reinforce: {launches}", flush=True)
     return launches
 
@@ -1648,11 +1777,12 @@ def ur5_kernel_times(agent, fp, dev):
 
     per = {name: device_us(lambda: fwd_bwd(fn))
            for name, fn in (("kernel", gp._predict_fused), ("plain", gp._predict_plain))}
-    t = dict(k1=named_us(per["kernel"], "k1_forward"),
+    t = dict(k1=k1_us(per["kernel"]), gen=named_us(per["kernel"], "k1_gen"),
              k2=named_us(per["kernel"], "k2_backward_xstar"),
              call=sum(per["kernel"].values()), plain=sum(per["plain"].values()))
     print(f"  UR5 fitted posterior (se+p2 D=24 G=6 P=200 M={post.x_tr.shape[0]}), device us per "
-          f"predict fwd+bwd: K1 {t['k1']:.2f}, K2 {t['k2']:.2f} (the call {t['call']:.2f}; "
+          f"predict fwd+bwd: K1 {t['k1']:.2f} (its generation pass {t['gen']:.2f}), K2 "
+          f"{t['k2']:.2f} (the call {t['call']:.2f}; "
           f"_predict_plain {t['plain']:.2f})", flush=True)
     return t
 
@@ -1714,10 +1844,11 @@ def ur5_phase(fp, dev):
     fresh = ur5.build(cfg2, dev)[0]
     fresh.load_checkpoint(os.path.join(log_dir, "policy_trial0"))
     torch.cuda.synchronize()
-    launches = dict(fp.launches)
+    launches = dict(fp.launches, **fp.gen_launches)
     hil_s = time.perf_counter() - t0
-    if launches["fwd"] == 0 or launches["bwd"] == 0:
-        raise RuntimeError(f"the UR5 HIL path did not launch K1/K2: {launches}")
+    if launches["fwd"] == 0 or launches["bwd"] == 0 or launches["gen"] != launches["fwd"]:
+        raise RuntimeError(f"the UR5 HIL path did not launch K1 (with its generation pass) "
+                           f"and K2: {launches}")
     if log.steps_done != UR5_STEPS or not np.all(np.isfinite(log.cost_history)):
         raise RuntimeError(f"UR5 improve_policy: {log.steps_done} steps, {log.cost_history}")
     if not (same_tree(fresh.policy_params, agent.policy_params)
@@ -2295,27 +2426,160 @@ def mesh_phase(fp, dev):
     return launches
 
 
-def kernel_ab(fp, dev, root):
-    """K1/K2 of the checkout at ``root`` against this checkout's, built with
-    the same flags and timed in turns (root / this / this / root) at the
-    flagship and 4PMS shapes."""
+def gpu_clocks():
+    """Start ``nvidia-smi``'s reading of the SM clock, its maximum, the power
+    draw and the temperature; ``.communicate()[0]`` gives the line.  Started
+    before a burst of launches, it reads the card under load."""
+    return subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+
+def ab_inputs(shape, dev):
+    """K1/K2's inputs and cotangents at one ``AB_SHAPES`` shape (phase 2's
+    seeds at L=1; lane l of a lane shape seeded 1000 l further on)."""
+    use_poly, g, P, M, d, L = shape
+    per = [kernel_inputs(P, M, seed=M + 10 * use_poly + 1000 * l, dev=dev, G=g, D=d)
+           for l in range(L)]
+    wk, wq = cotangents(P, dev, g)
+    if L == 1:
+        return per[0], wk, wq
+    return ([torch.stack(ts) for ts in zip(*per)],
+            *(torch.stack([(l + 1.0) * w for l in range(L)]) for w in (wk, wq)))
+
+
+def split_us(per):
+    """(us of the call's kernels but the partial sums', us of the whole
+    call) from ``device_us``'s per-kernel record."""
+    return (sum(t for k, t in per.items() if "sum_partials" not in k), sum(per.values()))
+
+
+def cold_l2_us(fn, flush, iters=20):
+    """Mean CUDA-event time of one call of ``fn`` with the L2 flushed before
+    it (a 256 MB write, five times the 50 MB L2), beside the same bracket
+    without the flush: (cold us, warm us)."""
+    out = []
+    for cold in (True, False):
+        ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+        for a, b in ev:
+            if cold:
+                flush.zero_()
+            a.record()
+            fn()
+            b.record()
+        torch.cuda.synchronize()
+        out.append(1e3 * sum(a.elapsed_time(b) for a, b in ev) / iters)
+    return tuple(out)
+
+
+def other_fused_predict(root):
+    """``ops/fused_predict.py`` of the checkout at ``root``, imported as a
+    module of its own: its wrappers drive its own library, built from its
+    own source into its own ``_build/``."""
+    import importlib.util
     from pathlib import Path
 
-    other, log = fp.build(Path(root) / "mcpilco_tpu_torch" / "csrc" / "fused_predict.cu")
-    for line in log.splitlines():
+    path = Path(root).resolve() / "mcpilco_tpu_torch" / "ops" / "fused_predict.py"
+    spec = importlib.util.spec_from_file_location("other_fused_predict", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_ab(fp, dev, root):
+    """K1/K2 of the checkout at ``root`` against this checkout's, built with
+    the same flags and timed in turns (root / this / this / root) at
+    ``AB_SHAPES``; see the module's docstring."""
+    import os
+
+    from mcpilco_tpu_torch.utils.profiling import bound
+
+    mods = {"other": other_fused_predict(root), "this": fp}
+    for line in mods["other"].build()[1].splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("  [other] " + line.strip(), flush=True)
-    mine = fp.build()[0]
-    rows = []
-    for turn in ("other", "this", "this", "other"):
-        fp.bind(other if turn == "other" else mine)
-        for use_poly, M in ((True, M_FLAGSHIP), (False, M_PMS)):
-            print(f"  [{turn}]", end="", flush=True)
-            t = time_kernels(fp, use_poly, M, dev)
-            rows.append(dict(build=turn, kind="se+p2" if use_poly else "se", M=M,
-                             k1_us=1e3 * t["k1_kernel"], k2_us=1e3 * t["k2_kernel"]))
-    fp.bind(mine)
-    print(json.dumps({"kernel_ab": rows, "other": str(root)}))
+    inputs = {s: ab_inputs(s, dev) for s in AB_SHAPES}
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+    rows, outs, plain = [], {}, {}
+    for i, turn in enumerate(("other", "this", "this", "other")):
+        f = mods[turn]
+        for shape in (AB_SHAPES if i % 2 == 0 else AB_SHAPES[::-1]):
+            use_poly, g, P, M, d, L = shape
+            args, wk, wq = inputs[shape]
+            kf = f.fused_gram_contract(*args, use_poly, return_kf=True)[2]
+            k1 = lambda: f.fused_gram_contract(*args, use_poly, return_kf=True)
+            k2 = lambda: f.fused_gram_contract_bwd_xstar(*args, kf, wk, wq, use_poly)
+            if (turn, shape) not in outs:
+                out = (*k1(), k2())
+                torch.cuda.synchronize()
+                outs[turn, shape] = [t.clone() for t in out]
+            if turn == "this" and shape not in plain:
+                kf_r = fp.reference_gram_contract(*args, use_poly, return_kf=True)[2]
+                plain[shape] = [sum(device_us(fn).values()) for fn in (
+                    lambda: fp.reference_gram_contract(*args, use_poly),
+                    lambda: fp.reference_gram_contract_bwd_xstar(*args, kf_r, wk, wq,
+                                                                 use_poly))]
+            smi = gpu_clocks()
+            events = (cuda_ms(k1, iters=200), cuda_ms(k2, iters=200))
+            clocks = smi.communicate()[0].strip()
+            row = dict(build=turn, turn=i, use_poly=use_poly, G=g, P=P, M=M, D=d, L=L,
+                       k1_events_us=1e3 * events[0], k2_events_us=1e3 * events[1],
+                       clocks=clocks, k1_us=[], k1_call_us=[], k2_us=[], k2_call_us=[])
+            for _ in range(AB_WINDOWS):
+                for key, fn in (("k1", k1), ("k2", k2)):
+                    per = device_us(fn)
+                    us, call = split_us(per)
+                    row[f"{key}_us"].append(us)
+                    row[f"{key}_call_us"].append(call)
+                    row[f"{key}_kernels"] = {k: round(t, 3) for k, t in per.items()}
+            if d > D:
+                row["k1_cold_l2_us"], row["k1_warm_bracket_us"] = cold_l2_us(k1, flush)
+            rows.append(row)
+            print(f"  [{turn}] {'se+p2' if use_poly else 'se'} D={d} G={g} L={L} P={P} M={M}: "
+                  f"K1 {' '.join(f'{t:.2f}' for t in row['k1_us'])} us (call "
+                  f"{' '.join(f'{t:.2f}' for t in row['k1_call_us'])}), K2 "
+                  f"{' '.join(f'{t:.2f}' for t in row['k2_us'])} us (call "
+                  f"{' '.join(f'{t:.2f}' for t in row['k2_call_us'])}); events K1 "
+                  f"{row['k1_events_us']:.2f} K2 {row['k2_events_us']:.2f} us"
+                  + (f"; K1 L2 cold {row['k1_cold_l2_us']:.2f} / warm "
+                     f"{row['k1_warm_bracket_us']:.2f} us" if d > D else "")
+                  + f"; clocks {clocks}", flush=True)
+    # the two builds' outputs on the same inputs: bitwise at the narrow
+    # shapes, the largest difference at the wide ones
+    summary, narrow_differ = [], []
+    for shape in AB_SHAPES:
+        use_poly, g, P, M, d, L = shape
+        a, b = outs["other", shape], outs["this", shape]
+        diff = max(max_err(x, y) for x, y in zip(a, b))
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        if d <= 8 and not same:
+            narrow_differ.append(shape)
+        med = {}
+        for build in ("other", "this"):
+            rs = [r for r in rows if r["build"] == build and (r["use_poly"], r["G"], r["P"],
+                                                                r["M"], r["D"], r["L"]) == shape]
+            for key in ("k1_us", "k1_call_us", "k2_us", "k2_call_us"):
+                med[f"{build}_{key}"] = float(np.median([t for r in rs for t in r[key]]))
+        b1, b2 = (bound(w(L, P, M, use_poly, g, d)) for w in (fp.k1_work, fp.k2_work))
+        summary.append(dict(shape=f"{'se+p2' if use_poly else 'se'} D={d} G={g} L={L} P={P} "
+                                  f"M={M}", bitwise_equal=same, max_abs_diff=diff,
+                            k1_plain_us=plain[shape][0], k2_plain_us=plain[shape][1],
+                            k1_bound_us=1e3 * b1[0], k2_bound_us=1e3 * b2[0], **med))
+        print(f"  A/B {summary[-1]['shape']}: K1 median other {med['other_k1_us']:.2f} / this "
+              f"{med['this_k1_us']:.2f} us (calls {med['other_k1_call_us']:.2f} / "
+              f"{med['this_k1_call_us']:.2f}; plain {plain[shape][0]:.2f}, bound "
+              f"{1e3 * b1[0]:.2f}), K2 other {med['other_k2_us']:.2f} / this "
+              f"{med['this_k2_us']:.2f} us (calls {med['other_k2_call_us']:.2f} / "
+              f"{med['this_k2_call_us']:.2f}; plain {plain[shape][1]:.2f}, bound "
+              f"{1e3 * b2[0]:.2f}); outputs {'bitwise equal' if same else 'differ'}, max "
+              f"|diff| {diff:.3e}", flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "kernel_ab.json"), "w") as f:
+        json.dump({"kernel_ab": rows, "summary": summary, "other": str(root)}, f, indent=1)
+    print(json.dumps({"kernel_ab": summary, "other": str(root)}), flush=True)
+    if narrow_differ:
+        raise RuntimeError(f"the two builds' narrow outputs differ at {narrow_differ}")
 
 
 def farm_sweep(fp, dev, sizes):
@@ -2527,7 +2791,7 @@ def main():
         if rec is not None:
             # the UR5 shape of phase 2's wide cases: its launches on the HIL
             # path and its device time on the fitted posterior
-            for key, kernel in (("fwd", "k1"), ("bwd", "k2")):
+            for key, kernel in (("fwd", "k1"), ("bwd", "k2"), ("gen", "gen")):
                 row = next(r for r in rec[key]["by_shape"] if r["shape"].startswith("se+p2 D=24"))
                 row.update(launches=ur5_launches[key], real_posterior_ms=1e-3 * ur5_times[kernel])
         phase("13 UR5 from the recorded trials: both models, remat, HIL path", t0)
@@ -2572,9 +2836,17 @@ def main():
         dict(name="fused_gram_contract_bwd_xstar (K2)", route="cuda", source=src,
              replaces="mcpilco_tpu/ops/fused_predict.py:271",
              launches=sum(p["bwd"] for p in paths), **rec["bwd"]),
+        # K1's generation pass above 8 input dims: the k* generation of the
+        # TPU kernel's body (distance, exp, polynomial terms, mask, kalpha)
+        dict(name="k1_gen (K1's generation pass, D > 8)", route="cuda", source=src,
+             replaces="mcpilco_tpu/ops/fused_predict.py:87",
+             launches=sum(p.get("gen", 0) for p in paths), **rec["gen"]),
     ]
     if not all(math.isfinite(k["ms"]) and math.isfinite(k["bound_ms"]) for k in kernels):
         raise RuntimeError("kernel timing missing")
+    if any(k["launches"] == 0 for k in kernels):
+        raise RuntimeError(f"a kernel of the main paths was never launched: "
+                           f"{[(k['name'], k['launches']) for k in kernels]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

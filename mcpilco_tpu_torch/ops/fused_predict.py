@@ -10,7 +10,11 @@ The rollout evaluates, per scan step and per GP head,
 and x*'s cotangent in a second (K2); they replace the Pallas kernels
 ``fused_gram_contract`` and ``fused_gram_contract_bwd_xstar`` of
 ``mcpilco_tpu/ops/fused_predict.py``.  When x* needs a gradient, K1 also
-returns kF = k* @ F, which K2 consumes in place of recomputing it.
+returns kF = k* @ F, which K2 consumes in place of recomputing it.  Above
+8 input dims K1 is two kernels: a generation pass (``k1_gen``; alone:
+:func:`fused_gram_gen`, plain twin :func:`reference_gram_gen`) writes the
+masked k* once per call, then a GEMM takes it; :func:`wide_plan` picks the
+wide kernels' tiles per shape.
 :class:`GramContract` is the autograd function around them.  On a CUDA
 tensor it launches the kernels or raises; on a CPU tensor it uses their
 plain PyTorch versions, :func:`reference_gram_contract` and
@@ -41,18 +45,34 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_predict.cu"
 BUILD_DIR = _PKG / "_build"
-MAX_D = 32  # input dims the kernels take (csrc MAX_D; above 8 they walk chunks of 8)
+MAX_D = 32  # input dims the kernels take (csrc MAX_D)
+NARROW_D = 8  # up to here the narrow kernels; above, the wide path (csrc NARROW_D)
+# the wide path's tiles (csrc GEN_*, WIDE_K1_CONFIGS, WIDE_K2_CONFIGS):
+# k1_gen's (particles, training points) per block; per configuration of
+# k1_forward_wide (particles, columns of F, slices) and of
+# k2_backward_xstar_wide (particles, training points, slices, blocks per SM
+# its registers leave room for), largest first.  K2's configurations sum in
+# the same order: their results are bitwise equal.
+GEN_TILE = (32, 64)
+WIDE_K1 = ((64, 64, 1), (32, 64, 2), (16, 32, 4))
+WIDE_K2 = ((32, 32, 2, 4), (32, 32, 2, 5), (32, 32, 2, 6), (16, 32, 2, 5))
+SMS = 132  # the H100's streaming multiprocessors
 
 # Kernel launches by the wrappers below, one per launch, and the lanes those
 # launches carried (L per launch); launches recorded into a CUDA graph count
 # once per replay (CapturedLaunches).
 launches = {"fwd": 0, "bwd": 0}
 launched_lanes = {"fwd": 0, "bwd": 0}
+# launches of the wide path's generation kernel (k1_gen): one per K1 launch
+# above 8 input dims, and one per fused_gram_gen
+gen_launches = {"gen": 0}
+_COUNTS = (launches, launched_lanes, gen_launches)
 
 
 def reset_launches() -> None:
-    for counts in (launches, launched_lanes):
-        counts.update(fwd=0, bwd=0)
+    for counts in _COUNTS:
+        for k in counts:
+            counts[k] = 0
 
 
 class CapturedLaunches:
@@ -62,18 +82,18 @@ class CapturedLaunches:
     the counts, and :meth:`replay` adds them once per replay of the graph."""
 
     def __enter__(self):
-        self._before = (dict(launches), dict(launched_lanes))
+        self._before = tuple(dict(c) for c in _COUNTS)
         return self
 
     def __exit__(self, *exc):
         self.counts = [{k: now[k] - was[k] for k in now}
-                       for now, was in zip((launches, launched_lanes), self._before)]
-        launches.update(self._before[0])
-        launched_lanes.update(self._before[1])
+                       for now, was in zip(_COUNTS, self._before)]
+        for counts, was in zip(_COUNTS, self._before):
+            counts.update(was)
         return False
 
     def replay(self) -> None:
-        for counts, add in zip((launches, launched_lanes), self.counts):
+        for counts, add in zip(_COUNTS, self.counts):
             for k, n in add.items():
                 counts[k] += n
 
@@ -115,21 +135,29 @@ def build(source=SOURCE):
 
 
 def bind(path):
-    """Load a built library and make it the one the wrappers launch."""
+    """Load a built library and make it the one the wrappers launch; one
+    whose wide tiles are not :func:`wide_plan`'s is refused."""
     global _lib, _tiles
     lib = ctypes.CDLL(str(path))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.fp_forward.argtypes = [ptr] * 14 + [i32] * 7 + [ptr]
+    lib.fp_forward.argtypes = [ptr] * 16 + [i32] * 8 + [ptr]
     lib.fp_forward.restype = i32
-    lib.fp_backward_xstar.argtypes = [ptr] * 15 + [i32] * 7 + [ptr]
+    lib.fp_gen.argtypes = [ptr] * 12 + [i32] * 6 + [ptr]
+    lib.fp_gen.restype = i32
+    lib.fp_backward_xstar.argtypes = [ptr] * 15 + [i32] * 8 + [ptr]
     lib.fp_backward_xstar.restype = i32
     lib.fp_error_string.argtypes = [i32]
     lib.fp_error_string.restype = ctypes.c_char_p
-    lib.fp_tiles.argtypes = [ptr]
-    lib.fp_tiles.restype = None
-    tiles = (ctypes.c_int * 4)()
-    lib.fp_tiles(tiles)
-    _lib, _tiles = lib, tuple(tiles)
+    lib.fp_tiles.argtypes = [ptr, i32]
+    lib.fp_tiles.restype = i32
+    tiles = (ctypes.c_int * 64)()
+    n = lib.fp_tiles(tiles, len(tiles))
+    want = [*GEN_TILE, len(WIDE_K1), *(v for t in WIDE_K1 for v in t), len(WIDE_K2),
+            *(v for t in WIDE_K2 for v in t)]
+    if list(tiles[4:n]) != want:
+        raise RuntimeError(f"{path}: the library's wide tiles {list(tiles[4:n])} are not the "
+                           f"plan's {want}")
+    _lib, _tiles = lib, tuple(tiles[:4])
     return lib
 
 
@@ -139,12 +167,54 @@ def _library():
     return _lib
 
 
-def launch_blocks(G: int, P: int, M: int, L: int = 1):
-    """Blocks per launch of (K1, K2) at these shapes, over L lanes."""
+def _grid(G, P, M, L, bp, bn):
+    return L * G * -(-P // bp) * -(-M // bn)
+
+
+def _pick(tiles, G, P, M, L):
+    """The index of the first (largest) tile whose grid runs at least 1.5
+    waves of blocks on the card's SMs; else of the one with the most blocks
+    that stays within one wave; else the last."""
+    blocks = [_grid(G, P, M, L, bp, bn) for bp, bn, *_ in tiles]
+    full = [i for i, b in enumerate(blocks) if b >= 1.5 * SMS]
+    if full:
+        return full[0]
+    within = [i for i, b in enumerate(blocks) if b <= SMS]
+    return max(within, key=lambda i: blocks[i]) if within else len(tiles) - 1
+
+
+def wide_plan(G: int, P: int, M: int, L: int = 1):
+    """The wide path's launches at these shapes (pure Python; the C side
+    takes the configuration indices): per kernel its configuration, tile
+    and blocks per launch over L lanes, and the padded particle count Pp of
+    k*'s layout.  A lane's bits must not depend on L: K1's configurations
+    sum in different orders, so one lane's shape picks K1's; K2's all sum
+    alike, so all L lanes' blocks pick its tile, and then the fewest blocks
+    per SM (the most registers) that hold its grid at once."""
+    k1 = _pick(WIDE_K1, G, P, M, 1)
+    bp, bm = WIDE_K2[_pick(WIDE_K2, G, P, M, L)][:2]
+    tile = [i for i, t in enumerate(WIDE_K2) if t[:2] == (bp, bm)]
+    blocks = _grid(G, P, M, L, bp, bm)
+    k2 = next((i for i in tile if blocks <= WIDE_K2[i][3] * SMS), tile[-1])
+    return {
+        "Pp": -(-P // GEN_TILE[0]) * GEN_TILE[0],
+        "k1_gen": dict(tile=GEN_TILE, blocks=_grid(G, P, M, L, *GEN_TILE)),
+        "k1_forward_wide": dict(config=k1, tile=WIDE_K1[k1],
+                                blocks=_grid(G, P, M, L, *WIDE_K1[k1][:2])),
+        "k2_backward_xstar_wide": dict(config=k2, tile=WIDE_K2[k2],
+                                       blocks=_grid(G, P, M, L, *WIDE_K2[k2][:2])),
+    }
+
+
+def launch_blocks(G: int, P: int, M: int, L: int = 1, D: int = 6):
+    """Blocks per launch of (K1, K2) at these shapes, over L lanes; above 8
+    input dims K1's GEMM (its generation pass: :func:`wide_plan`)."""
+    if D > NARROW_D:
+        plan = wide_plan(G, P, M, L)
+        return plan["k1_forward_wide"]["blocks"], plan["k2_backward_xstar_wide"]["blocks"]
     _library()
     k1_bp, k1_bn, k2_bp, k2_bm = _tiles
-    return (L * G * -(-P // k1_bp) * -(-M // k1_bn),
-            L * G * -(-P // k2_bp) * -(-M // k2_bm))
+    return _grid(G, P, M, L, k1_bp, k1_bn), _grid(G, P, M, L, k2_bp, k2_bm)
 
 
 def _check_launch(lib, err: int, name: str) -> None:
@@ -156,10 +226,10 @@ _ARG_NAMES = ("se_w", "se_lam", "poly1", "poly2a", "poly2b", "x_star", "x_tr", "
               "var_factor", "mask", "kf", "g1", "g2")
 
 
-def _validate(tensors, shapes, device):
+def _validate(tensors, shapes, device, names=_ARG_NAMES):
     if device.type != "cuda":
         raise ValueError(f"the kernels run on a CUDA device, got {device}")
-    for name, t, shape in zip(_ARG_NAMES, tensors, shapes):
+    for name, t, shape in zip(names, tensors, shapes):
         if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
                 f"{name}: the kernel takes contiguous float32 tensors on {device}, got "
@@ -222,16 +292,30 @@ def fused_gram_contract(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha
     _validate(args, shapes, dev)
     lib = _library()
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    kalpha, quad, qpart = new(L, G, P), new(L, G, P), new(L, G, -(-M // _tiles[1]), P)
+    kalpha, quad = new(L, G, P), new(L, G, P)
     kf = new(L, G, P, M) if return_kf else None
-    err = lib.fp_forward(
-        *(t.data_ptr() for t in args), kalpha.data_ptr(), qpart.data_ptr(), quad.data_ptr(),
-        None if kf is None else kf.data_ptr(), L, G, P, M, D, int(bool(use_poly)),
-        _vec(M, args[8], kf), _stream(dev),
-    )
+    ptr = lambda t: None if t is None else t.data_ptr()
+    vec = _vec(M, args[8], kf)
+    if D > NARROW_D:
+        # the generation pass's k* [L, G, M, Pp] and kalpha's partials per
+        # point tile; quad's partials per column tile of the plan's GEMM
+        plan = wide_plan(G, P, M)
+        cfg = plan["k1_forward_wide"]["config"]
+        kt, kapart = new(L, G, M, plan["Pp"]), new(L, G, -(-M // GEN_TILE[1]), P)
+        qpart = new(L, G, -(-M // WIDE_K1[cfg][1]), P)
+        err = lib.fp_forward(*(t.data_ptr() for t in args), kalpha.data_ptr(), qpart.data_ptr(),
+                             quad.data_ptr(), ptr(kf), kt.data_ptr(), kapart.data_ptr(), L, G, P,
+                             M, D, int(bool(use_poly)), vec, cfg, _stream(dev))
+    else:
+        qpart = new(L, G, -(-M // _tiles[1]), P)
+        err = lib.fp_forward(*(t.data_ptr() for t in args), kalpha.data_ptr(), qpart.data_ptr(),
+                             quad.data_ptr(), ptr(kf), None, None, L, G, P, M, D,
+                             int(bool(use_poly)), vec, 0, _stream(dev))
     _check_launch(lib, err, "fp_forward")
     launches["fwd"] += 1
     launched_lanes["fwd"] += L
+    if D > NARROW_D:
+        gen_launches["gen"] += 1
     out = (kalpha, quad, kf) if return_kf else (kalpha, quad)
     return tuple(t[0] for t in out) if one else out
 
@@ -249,16 +333,44 @@ def fused_gram_contract_bwd_xstar(se_w, se_lam, poly1, poly2a, poly2b, x_star, x
     dev = x_star.device
     _validate(args, shapes, dev)
     lib = _library()
-    dxp = torch.empty((L, G, -(-M // _tiles[3]), P, D), dtype=torch.float32, device=dev)
+    bm, cfg = _tiles[3], 0
+    if D > NARROW_D:
+        k2 = wide_plan(G, P, M, L)["k2_backward_xstar_wide"]
+        bm, cfg = k2["tile"][1], k2["config"]
+    dxp = torch.empty((L, G, -(-M // bm), P, D), dtype=torch.float32, device=dev)
     dx = torch.empty((L, P, D), dtype=torch.float32, device=dev)
     err = lib.fp_backward_xstar(
         *(t.data_ptr() for t in args), dxp.data_ptr(), dx.data_ptr(), L, G, P, M, D,
-        int(bool(use_poly)), _vec(M, args[8], args[10]), _stream(dev),
+        int(bool(use_poly)), _vec(M, args[8], args[10]), cfg, _stream(dev),
     )
     _check_launch(lib, err, "fp_backward_xstar")
     launches["bwd"] += 1
     launched_lanes["bwd"] += L
     return dx[0] if one else dx
+
+
+def fused_gram_gen(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, mask,
+                   use_poly: bool):
+    """The wide path's generation kernel alone on the card (``k1_gen``, then
+    the sum of kalpha's partials): returns (k* [G, P, M], kalpha [G, P]),
+    with the lane axis in front when the inputs have one; k* is a view of
+    the kernel's [M, Pp] layout.  Any D up to 32.  K1 launches the same
+    kernel above 8 input dims; this wrapper serves its check against
+    :func:`reference_gram_gen`."""
+    args, one = _as_lanes((se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, mask))
+    L, G, P, M, D, shapes = _shapes(args[0], args[5], args[6])
+    dev = x_star.device
+    _validate(args, shapes[:8] + shapes[9:10], dev, _ARG_NAMES[:8] + _ARG_NAMES[9:10])
+    lib = _library()
+    Pp = wide_plan(G, P, M)["Pp"]
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    kt, kapart, kalpha = new(L, G, M, Pp), new(L, G, -(-M // GEN_TILE[1]), P), new(L, G, P)
+    err = lib.fp_gen(*(t.data_ptr() for t in args), kt.data_ptr(), kapart.data_ptr(),
+                     kalpha.data_ptr(), L, G, P, M, D, int(bool(use_poly)), _stream(dev))
+    _check_launch(lib, err, "fp_gen")
+    gen_launches["gen"] += 1
+    k = kt[..., :P].transpose(-1, -2)
+    return (k[0], kalpha[0]) if one else (k, kalpha)
 
 
 def _gram_terms(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, use_poly):
@@ -275,17 +387,27 @@ def _gram_terms(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, use_poly):
     return k_se, (lin1, a2, b2)
 
 
-def reference_gram_contract(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha,
-                            var_factor, mask, use_poly: bool, return_kf: bool = False):
-    """Plain PyTorch version of K1 (same formulas, same optional lane axis):
-    the CPU path, the source of every gradient but x*'s, and K1's oracle on
-    the card."""
+def reference_gram_gen(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha, mask,
+                       use_poly: bool):
+    """Plain PyTorch version of the generation kernel ``k1_gen``: the masked
+    k* [..., G, P, M] and kalpha = k* alpha [..., G, P] (same optional lane
+    axis); its oracle on the card, and the first half of
+    :func:`reference_gram_contract`."""
     k, poly = _gram_terms(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, use_poly)
     if poly is not None:
         lin1, a2, b2 = poly
         k = k + lin1 + a2 * b2
     k = k * mask[..., None, :]
-    kalpha = torch.einsum("...gpm,...gm->...gp", k, alpha)
+    return k, torch.einsum("...gpm,...gm->...gp", k, alpha)
+
+
+def reference_gram_contract(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha,
+                            var_factor, mask, use_poly: bool, return_kf: bool = False):
+    """Plain PyTorch version of K1 (same formulas, same optional lane axis):
+    the CPU path, the source of every gradient but x*'s, and K1's oracle on
+    the card."""
+    k, kalpha = reference_gram_gen(se_w, se_lam, poly1, poly2a, poly2b, x_star, x_tr, alpha,
+                                   mask, use_poly)
     kf = torch.matmul(k, var_factor)
     quad = torch.sum(kf * kf, dim=-1)
     return (kalpha, quad, kf) if return_kf else (kalpha, quad)
@@ -391,6 +513,15 @@ def k1_work(L, P, M, use_poly, G, D):
     outputs = 2 * G * P + G * P * M
     gen = 4 * D + 4 + (6 * D + 3 if use_poly else 0)
     return 4 * L * (inputs + outputs), L * G * P * M * (2 * M + 4 + gen)
+
+
+def gen_work(L, P, M, use_poly, G, D):
+    """(bytes, flops) of the generation kernel k1_gen with kalpha's sum: reads
+    the head factors, x*, X, alpha and the mask, writes k* and kalpha;
+    flops of the k generation (as in :func:`k1_work`) and kalpha."""
+    inputs = G * D + G + G * (D + 1) + 2 * G * D + P * D + M * D + 2 * G * M
+    gen = 4 * D + 4 + (6 * D + 3 if use_poly else 0)
+    return 4 * L * (inputs + G * P * M + G * P), L * G * P * M * (gen + 2)
 
 
 def k2_work(L, P, M, use_poly, G, D):
