@@ -39,7 +39,12 @@ flagship, against the uncaptured body (``graph=False``).
    learning-curve check;
 6. the 4PMS main path: ``cartpole_pms.build`` then ``reinforce`` for 1
    trial of 3 steps at full width (a 500-epoch fit), with its launch
-   counts;
+   counts; its checkpoint (under the ignored
+   ``results_tmp/torch/chip_smoke_analysis/``) through
+   ``scripts.analyze_mujoco_failures --scenario pms`` and
+   ``scripts.analyze_pms_bias`` on the card, the row printed, its
+   executed cost the run's own ``trial_cumulative_cost(-1)`` to 1e-6
+   relative;
 7. the seed farm at full width: ``SeedFarm`` over 4 flagship seeds (P=400,
    horizon 60, SE+P(2), SOD, 500-epoch fits), 1 exploration and 1 trial
    of 10 steps, K1/K2 launched with 4 lanes; its ``improve_policy`` again
@@ -63,8 +68,10 @@ flagship, against the uncaptured body (``graph=False``).
    busy, device events per step and idle share over 2 profiled steps), the
    fitted posterior through K1 against float64 and the learning-curve check;
 10. the Furuta main path: ``furuta.build`` then ``reinforce`` for 1 trial
-    of 3 steps (300-epoch fit; no kernel structure: 0 launches), and the
-    ``semiparametric=False`` variant the same (both kernels);
+    of 3 steps (300-epoch fit; no kernel structure: 0 launches), its
+    checkpoint through ``scripts.analyze_mujoco_failures --scenario
+    furuta`` on the card as in phase 6, and the ``semiparametric=False``
+    variant the same (both kernels);
 11. SOR: the flagship cart-pole ``reinforce`` for 1 trial of 10 steps (a
     500-epoch fit) with
     the SOD posterior replaced by the Subset-of-Regressors approximation
@@ -991,6 +998,53 @@ def main_path(built, fp):
                            f"path's input dims ({'above' if wide else 'at most'} 8)")
     print(f"  launches in reinforce: {launches}", flush=True)
     return launches
+
+
+def analysis_log_dir(prefix, seed):
+    """A fresh log dir ``results_tmp/torch/chip_smoke_analysis/<prefix>_<seed>``
+    (the layout of ``repeat``'s run dirs, which the analysis tools read)."""
+    import os
+    import shutil
+
+    log_dir = os.path.join("results_tmp", "torch", "chip_smoke_analysis", f"{prefix}_{seed}")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    return log_dir
+
+
+def analysis_check(agent, scenario, dev, bias=False):
+    """The failure analysis (``analyze_mujoco_failures``, and with ``bias``
+    ``analyze_pms_bias``) on the card over the checkpoint that ``agent``'s
+    run just wrote; its row's executed cost must be the run's own
+    ``trial_cumulative_cost(-1)`` to 1e-6 relative."""
+    import os
+
+    from mcpilco_tpu_torch.scripts import analyze_mujoco_failures, analyze_pms_bias
+
+    root, run = os.path.split(agent.log_dir)
+    seed = run.rsplit("_", 1)[1]
+    rows = analyze_mujoco_failures.main(["--scenario", scenario, "--root", root, "--seeds", seed,
+                                         "--device", str(dev)])
+    own = agent.trial_cumulative_cost(-1)
+    if len(rows) != 1:
+        raise RuntimeError(f"the {scenario} analysis gave {len(rows)} rows, not 1")
+    row = rows[0]
+    gap = abs(row["executed_cost"] - own) / max(abs(own), 1e-30)
+    print(f"  analysis row: {json.dumps(row)}", flush=True)
+    print(f"  analysis: executed cost {row['executed_cost']!r} against the run's own "
+          f"{own!r} (relative gap {gap:.3e}, allowed 1e-6)", flush=True)
+    if not gap <= 1e-6:
+        raise RuntimeError(f"the {scenario} analysis' executed cost {row['executed_cost']} is "
+                           f"not the run's own {own}")
+    if not all(math.isfinite(v) for v in row["onestep_rmse"] + [row["in_model_cost"]]):
+        raise RuntimeError(f"the {scenario} analysis row is not finite: {row}")
+    if bias:
+        ckpt = max((d for d in os.listdir(agent.log_dir) if d.startswith("complete_trial")),
+                   key=lambda d: int(d.rsplit("trial", 1)[1]))
+        out = analyze_pms_bias.main([os.path.join(agent.log_dir, ckpt), "--device", str(dev)])
+        if not all(math.isfinite(v) for r in out.values() for v in r.values()):
+            raise RuntimeError(f"the 4PMS bias analysis is not finite: {out}")
+        print(f"  bias analysis: {json.dumps(out)}", flush=True)
+    return row
 
 
 def lane_runner(agent, keys, params, gp_params, post, trial_index):
@@ -2736,9 +2790,13 @@ def main():
 
     if 6 in wanted:
         t0 = time.perf_counter()
-        cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(3,), gp_epochs=500)
-        paths.append(main_path(cartpole_pms.build(cfg, dev), fp))
-        phase("6 4PMS main path: build + reinforce (1 trial)", t0)
+        cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(3,), gp_epochs=500,
+                                             log_dir=analysis_log_dir("cartpole_pms", 1))
+        built = cartpole_pms.build(cfg, dev)
+        paths.append(main_path(built, fp))
+        analysis_check(built[0], "pms", dev, bias=True)
+        phase("6 4PMS main path: build + reinforce (1 trial), its failure and bias analyses",
+              t0)
 
     if 7 in wanted:
         t0 = time.perf_counter()
@@ -2768,11 +2826,14 @@ def main():
 
     if 10 in wanted:
         t0 = time.perf_counter()
-        cfg = furuta.FurutaConfig(seed=1, num_trials=1, opt_steps=(3,), gp_epochs=300)
+        cfg = furuta.FurutaConfig(seed=1, num_trials=1, opt_steps=(3,), gp_epochs=300,
+                                  log_dir=analysis_log_dir("furuta", 1))
+        built = furuta.build(cfg, dev)
+        paths.append(main_path(built, fp))
+        analysis_check(built[0], "furuta", dev)
+        cfg = dataclasses.replace(cfg, semiparametric=False, log_dir=None)
         paths.append(main_path(furuta.build(cfg, dev), fp))
-        cfg = dataclasses.replace(cfg, semiparametric=False)
-        paths.append(main_path(furuta.build(cfg, dev), fp))
-        phase("10 Furuta main path: build + reinforce (1 trial each)", t0)
+        phase("10 Furuta main path: build + reinforce (1 trial each), the failure analysis", t0)
 
     if 11 in wanted:
         t0 = time.perf_counter()

@@ -1,0 +1,121 @@
+"""Hold the port's outcome sweeps against the JAX package's records by the
+decision rule of the outcome protocol.
+
+    python -m mcpilco_tpu_torch.scripts.outcome_parity          # the committed sweeps
+    python -m mcpilco_tpu_torch.scripts.outcome_parity --port results_tmp/torch --json
+
+A scenario matches its JAX record when both hold:
+
+(a) Fisher's exact test (two-sided) on the success counts gives p >= 0.05;
+(b) the median final cost of the port's successes lies within the JAX
+    successes' q25-q75.
+
+Rates and quartiles are compared, never seed against seed: a one-ulp change
+re-rolls a seed's outcome.  The port's summaries (``repeat``'s
+``repeat_*.json``) come from ``--port`` (directories or files; by default
+``results/torch/``, where finished sweeps are kept), merged per scenario and
+arm as ``summarize_results`` merges them.  Each (scenario, arm) is held
+against the JAX record that ran its config (``RECORDS``, files of the
+checkout's ``results/``).  Quartiles are numpy's linear percentiles.  Needs
+scipy (``fisher_exact``); it reads files only and runs on any host.
+"""
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+from .summarize_results import ROOT, merge, summary_files
+
+# (scenario, arm) -> the JAX package's records of that config
+RECORDS = {
+    ("cartpole", ""): ["results/repeat_cartpole_50seeds_farm_r3.json"],
+    ("cartpole_pms", ""): ["results/repeat_pms5_50seeds_r3.json"],
+    ("cartpole_multi_init", ""): ["results/repeat_multiinit_50seeds_r3.json"],
+    ("furuta", ""): ["results/repeat_furuta_seeds2-3.json",
+                     "results/repeat_furuta_seeds4-10.json"],
+    ("cartpole_pms", "MCPILCO_LEGACY_VAR=1"): [
+        "results/repeat_cartpole_pms_5trials_legacyvar_r3.json"],
+}
+P_MIN = 0.05
+
+
+def _quartiles(costs):
+    if not costs:
+        return None
+    q = np.percentile(np.asarray(costs, np.float64), [25, 50, 75])
+    return {"q25": float(q[0]), "median": float(q[1]), "q75": float(q[2])}
+
+
+def outcome(entry) -> dict:
+    """Seeds, successes, and the cost quartiles of the successes and of all
+    seeds of one merged (scenario, arm)."""
+    ok = {int(k): bool(v) for k, v in entry["per_seed"].items() if v is not None}
+    cost = {int(k): v for k, v in entry["per_seed_cost"].items() if v is not None}
+    return {"seeds": len(ok), "successes": sum(ok.values()),
+            "rate": sum(ok.values()) / len(ok) if ok else None,
+            "success_cost": _quartiles([cost[s] for s in ok if ok[s] and s in cost]),
+            "all_cost": _quartiles([cost[s] for s in ok if s in cost])}
+
+
+def verdict(port: dict, ref: dict) -> dict:
+    """The decision rule on two :func:`outcome` s."""
+    from scipy.stats import fisher_exact
+
+    table = [[port["successes"], port["seeds"] - port["successes"]],
+             [ref["successes"], ref["seeds"] - ref["successes"]]]
+    p = float(fisher_exact(table, alternative="two-sided")[1])
+    ps, rs = port["success_cost"], ref["success_cost"]
+    in_iqr = bool(ps is not None and rs is not None
+                  and rs["q25"] <= ps["median"] <= rs["q75"])
+    return {"fisher_p": p, "rate_ok": p >= P_MIN, "median_in_jax_iqr": in_iqr,
+            "match": p >= P_MIN and in_iqr}
+
+
+def rows(port_paths, root=ROOT) -> list:
+    out = []
+    for (scenario, arm), entry in sorted(merge(summary_files(port_paths), root).items()):
+        jax_files = RECORDS.get((scenario, arm))
+        if jax_files is None:
+            continue
+        ref = merge([os.path.join(root, f) for f in jax_files], root)
+        (ref_entry,) = ref.values()
+        port, jax = outcome(entry), outcome(ref_entry)
+        out.append({"scenario": scenario + (f" [{arm}]" if arm else ""), "port": port,
+                    "jax": jax, **verdict(port, jax), "port_files": entry["files"],
+                    "jax_files": jax_files})
+    return out
+
+
+def _fmt(q):
+    return "-" if q is None else f"{q['q25']:.3f} / {q['median']:.3f} / {q['q75']:.3f}"
+
+
+def main(argv=None) -> list:
+    p = argparse.ArgumentParser("outcome_parity")
+    p.add_argument("--port", action="append", default=None,
+                   help="the port's summaries: directories or files (repeatable; default "
+                        "results/torch)")
+    p.add_argument("--json", action="store_true", help="print the rows as JSON")
+    args = p.parse_args(argv)
+    found = rows(args.port or [os.path.join(ROOT, "results", "torch")])
+    if args.json:
+        print(json.dumps(found, indent=1))
+        return found
+    print("| scenario | port | port successes' cost q25 / median / q75 | port all seeds' "
+          "cost | JAX | JAX successes' cost | Fisher p | verdict |")
+    print("|---|---|---|---|---|---|---|---|")
+    for r in found:
+        pt, jx = r["port"], r["jax"]
+        print(f"| {r['scenario']} | {pt['successes']}/{pt['seeds']} | {_fmt(pt['success_cost'])} "
+              f"| {_fmt(pt['all_cost'])} | {jx['successes']}/{jx['seeds']} "
+              f"| {_fmt(jx['success_cost'])} | {r['fisher_p']:.3f} "
+              f"| {'match' if r['match'] else 'no match'}"
+              f"{'' if r['rate_ok'] else ' (rate)'}"
+              f"{'' if r['median_in_jax_iqr'] else ' (median)'} |")
+    return found
+
+
+if __name__ == "__main__":
+    main()

@@ -90,6 +90,7 @@ import torch
 
 from ..control.trainer import graph_counts
 from ..models.gp import fit_counts
+from ..ops import fused_predict as fp
 from ..parallel.multiseed import SeedFarm
 from ..scenarios import cartpole, cartpole_mujoco, cartpole_pms, furuta, ur5
 from . import (train_cartpole, train_cartpole_mujoco, train_cartpole_pms, train_furuta,
@@ -430,7 +431,14 @@ def _farm_batch(args, scen, batch, extra, tick, results, costs) -> None:
     agent, kwargs = scen.build(cfg, args.device)
     farm = SeedFarm(agent, batch, policy_init_fn=lambda k: scen.policy_init(
         cfg, agent.policy, k, args.device), progress_cb=tick)
+    # the batch's kernel launches, as differences: a caller may be counting too
+    counts = (fp.launches, fp.gen_launches, fp.launched_lanes)
+    before = [dict(c) for c in counts]
+    t0 = time.time()
     res = farm.run(**kwargs)
+    (k1, k2), (gen,), lanes = ([c[k] - b[k] for k in c] for c, b in zip(counts, before))
+    print(f"[repeat] batch {batch}: {time.time() - t0:.1f} s; K1 {k1} / K2 {k2} / k1_gen {gen} "
+          f"launches, lanes {lanes[0]} / {lanes[1]}", flush=True)
     for i, s in enumerate(batch):
         # a per-trial cost schedule scores the final trial with its own row
         stage = agent.cost.stage_costs(torch.as_tensor(res.final_true[i][:, None, :]),

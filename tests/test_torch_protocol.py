@@ -25,7 +25,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # A train script: with STUB_OUTCOME success / failure / infra / kernel_fault
 # its main prints what such a seed prints; with STUB_STOP it leaves the STOP
-# file behind after seed 1.  Its run goes silent for a minute, or with
+# file behind after seed 1, and other seeds end only after that.  Its run goes silent for a minute, or with
 # STUB_OUTCOME ticking (fitting) runs optimizer iterations (fit epochs) for
 # 6 s and prints nothing.
 STUB_TRAIN = textwrap.dedent('''
@@ -77,9 +77,19 @@ STUB_TRAIN = textwrap.dedent('''
         elif outcome == "kernel_fault":
             print("RuntimeError: CUDA error: an illegal memory access was encountered\\n"
                   "CUDA-capable device(s) is/are busy or unavailable", file=sys.stderr)
-        if os.environ.get("STUB_STOP") and args.seed == 1:
-            os.makedirs(os.path.dirname(os.environ["STUB_STOP"]), exist_ok=True)
-            open(os.environ["STUB_STOP"], "w").close()
+        stop = os.environ.get("STUB_STOP")
+        if stop and args.seed == 1:
+            os.makedirs(os.path.dirname(stop), exist_ok=True)
+            open(stop, "w").close()
+            open(stop + ".left", "w").close()
+        elif stop:
+            # a seed beside seed 1 ends after seed 1 left the STOP file (as a
+            # longer seed would), so the sweep meets the file at its next
+            # boundary; the sweep consumes STOP, never STOP.left
+            for _ in range(600):
+                if os.path.exists(stop + ".left"):
+                    break
+                time.sleep(0.05)
         return 0 if outcome == "success" else 1
 
     if __name__ == "__main__":
@@ -391,7 +401,9 @@ def test_a_cut_down_sweep_leaves_the_flagship_row(stub, monkeypatch):
         return {r["scenario"]: r for r in json.loads(out.getvalue())}
 
     alone, merged = table("--dir", flagship), table()
-    assert sorted(merged) == ["cartpole", "cartpole [--smoke]", "cartpole [--trials=1]"]
+    # the flagship's rows (results/torch also holds other scenarios' sweeps)
+    assert sorted(r for r in merged if r.split(" ")[0] == "cartpole") == [
+        "cartpole", "cartpole [--smoke]", "cartpole [--trials=1]"]
     assert merged["cartpole"] == alone["cartpole"]
     assert merged["cartpole [--smoke]"]["successes"] == 0
 

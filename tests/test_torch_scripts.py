@@ -22,7 +22,8 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = ["train_cartpole", "train_cartpole_pms", "train_furuta", "train_ur5",
            "train_cartpole_mujoco", "apply_policy", "repeat", "profile_opt", "summarize_results",
-           "profile_farm", "bench_particle_scaling"]
+           "profile_farm", "bench_particle_scaling", "analyze_mujoco_failures",
+           "analyze_pms_bias", "plot_logs", "outcome_parity"]
 # repeat's seeds cut to a few seconds each
 TINY_KW = ["--scenario-kw", "num_particles=16", "--scenario-kw", "opt_steps=(3,)",
            "--scenario-kw", "gp_epochs=30", "--scenario-kw", "num_basis=10"]
