@@ -165,6 +165,24 @@ flagship, against the uncaptured body (``graph=False``).
     else at the JAX package's particle tolerances; every disagreement is
     printed before the phase fails.  With one card it says that the checks
     over 2-4 cards did not run.  One JSON line ``{"mesh": ...}``.
+17. (only under ``--phases 17``, not in the default run) the card half of
+    the 4PMS same-dataset A/B: the dataset and GP hyperparameters that
+    ``tests/test_torch_pms_fullwidth.py`` made with the JAX package's plant
+    and fit (``tests/fixtures/pms_fullwidth_dataset.npz``, N=440, M=448;
+    the posterior built here by the port), the scenario's trial-0
+    optimization (P=400, horizon 90, 200 basis, BPTT clip 0.2, lr 0.01,
+    dropout 0.25, the scenario's monitor) from the policy inits of seeds
+    1-8, as 8 lanes of one graphed ``optimize_lanes`` call, at the CPU
+    A/B's cut cap (``AB_CAP``) and at the scenario's trial-0 cap of 2000.
+    Per key: the in-model cost of the returned policy, the last cost, the
+    cost on the port's 4PMS plant (``stage_costs`` of the true states, as
+    ``repeat`` scores a trial) and swing-up, the clip's binding share per
+    carried tensor (state, raw measurement, filtered velocity) over the
+    lane's live iterations (accumulated on the card inside the graph), the
+    stop step and the plateau schedule's events (the port's monitor
+    replayed on the lane's cost history on the host, checked against the
+    lane's final lr and dropout).  The rows go to
+    ``chiprun_out/pms_ab.json`` as one JSON line ``{"pms_ab": ...}``.
 
 Phase 2 also holds K1/K2 in their wide path (input dims above 8: K1's
 generation kernel ``k1_gen`` and GEMM, K2-wide) against their plain versions,
@@ -2698,6 +2716,123 @@ def step_profile(root):
                           **profile_steps(run, host_repeats=3))))
 
 
+# phase 17: the A/B's keys (policy inits and rollout streams), the CPU
+# A/B's cut cap and the scenario's trial-0 cap, the dataset
+AB_SEEDS = tuple(range(1, 9))
+AB_CAP = 800
+AB_CAPS = (AB_CAP, 2000)
+AB_DATASET = ("tests", "fixtures", "pms_fullwidth_dataset.npz")
+
+
+def pms_ab_phase(fp, dev):
+    """Phase 17: the card half of the 4PMS A/B (see the module docstring)."""
+    import os
+
+    from mcpilco_tpu_torch.control import trainer
+    from mcpilco_tpu_torch.models.gp import GPParams
+    from mcpilco_tpu_torch.scenarios import cartpole_pms
+    from mcpilco_tpu_torch.utils import prng
+    from mcpilco_tpu_torch.utils.clip_probe import ClipShares, clip_cotangents
+
+    cfg = cartpole_pms.CartpolePMSConfig()
+    agent, _ = cartpole_pms.build(cfg, dev)
+    d = np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)), *AB_DATASET))
+    agent.gp_x, agent.gp_y = d["gp_x"], d["gp_y"]
+    tensor = lambda k: torch.as_tensor(d[k], device=dev)
+    agent.gp_params = GPParams(
+        kernel={k[len("kernel_"):]: tensor(k) for k in d.files if k.startswith("kernel_")},
+        log_sigma_n=tensor("gp_log_sigma_n"))
+    agent.posterior = agent._build_posterior(agent._padded_data())
+    M = int(agent.posterior.x_tr.shape[0])
+    if (agent.gp_x.shape[0], M) != (440, M_PMS):
+        raise RuntimeError(f"A/B dataset: N={agent.gp_x.shape[0]}, M={M}")
+    opt, L = agent.optimizer, len(AB_SEEDS)
+    keys = [prng.fold(prng.stream(prng.root_key(s), prng.STREAM_ROLLOUT), 0) for s in AB_SEEDS]
+    inits = [cartpole_pms.policy_init(cfg, agent.policy, prng.root_key(s), dev) for s in AB_SEEDS]
+    params = {k: torch.stack([p[k] for p in inits]) for k in inits[0]}
+    print(f"  dataset N={agent.gp_x.shape[0]}, M={M}; P={opt.num_particles}, horizon "
+          f"{opt.horizon}, {agent.policy.num_basis} basis, clip {opt.engine.bptt_clip}", flush=True)
+    out = {}
+    for cap in AB_CAPS:
+        # the clip's binding share per lane, over the lane's live iterations
+        body, seen = trainer.PolicyOptimizer._body, {}
+
+        def spied_body(self, buf, *args, **kwargs):
+            seen["buf"] = buf
+            return body(self, buf, *args, **kwargs)
+
+        def live(num_steps=cap):
+            lane = seen["buf"].lane
+            return (lane["done"] == 0) & (lane["halted"] == 0) & (lane["step"] < num_steps)
+
+        spy = ClipShares(opt.engine.bptt_clip, L, dev, live)
+
+        # the probe rollout's cost, the monitor's first cost_prev
+        probes = []
+        rollout_cost = trainer.PolicyOptimizer._rollout_cost
+
+        def probe_cost(self, *args, **kwargs):
+            c, aux = rollout_cost(self, *args, **kwargs)
+            if not probes:
+                probes.append(c.detach().cpu().numpy())
+            return c, aux
+
+        fp.reset_launches()
+        t0 = time.perf_counter()
+        with clip_cotangents(spy), \
+                mock.patch.object(trainer.PolicyOptimizer, "_body", spied_body), \
+                mock.patch.object(trainer.PolicyOptimizer, "_rollout_cost", probe_cost):
+            results, _ = opt.optimize_lanes(keys, params, agent.gp_params, agent.posterior,
+                                            cap, 0.01, 0.25, 0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        shares = spy.shares()
+        rows = []
+        for i, (seed, res) in enumerate(zip(AB_SEEDS, results)):
+            costs = res.cost_history.numpy()[:res.steps_done]
+            if not np.all(np.isfinite(costs)) or res.reinit_count:
+                raise RuntimeError(f"A/B seed {seed}: non-finite costs or a re-init")
+            ev, stop = opt.replay_schedule(costs, float(probes[0][i]))
+            lr_end, p_end = (ev[-1][1], ev[-1][2]) if ev else (float(np.float32(0.01)), 0.25)
+            if (lr_end, p_end) != (float(np.float32(res.final_lr)), res.final_p_dropout) or \
+                    (stop or cap) != res.steps_done:
+                raise RuntimeError(f"A/B seed {seed}: the replayed schedule {ev}, stop {stop} "
+                                   f"against the lane's lr {res.final_lr}, p_drop "
+                                   f"{res.final_p_dropout}, steps {res.steps_done}")
+            key = prng.fold(prng.stream(prng.root_key(seed), prng.STREAM_SYSTEM), 1)
+            trial = agent.plant.rollout(key, np.zeros(4, np.float32), agent.policy,
+                                        res.policy_params, cfg.T_control, cfg.dt, device=dev)
+            true, inputs = trial.true[1:-1], trial.inputs[1:-1]
+            stage = agent.cost.stage_costs(torch.as_tensor(true[:, None]),
+                                           torch.as_tensor(inputs[:, None]), 0)
+            rows.append(dict(seed=seed, steps=res.steps_done, best_cost=float(costs.min()),
+                             last_cost=float(costs[-1]), executed_cost=float(torch.sum(stage)),
+                             success=cartpole_pms.swingup_success(true),
+                             clip_share=shares[i].tolist(), stop_step=stop, events=ev))
+            print(f"  cap {cap} seed {seed}: steps {res.steps_done}, in-model best "
+                  f"{rows[-1]['best_cost']:.4f} last {rows[-1]['last_cost']:.4f}, executed "
+                  f"{rows[-1]['executed_cost']:.4f} (swing-up {rows[-1]['success']}), clip "
+                  f"share {np.round(shares[i], 6).tolist()}, stop {stop}, events {ev}",
+                  flush=True)
+        med = lambda k: float(np.median([r[k] for r in rows]))
+        launches = dict(fp.launches)
+        if launches["fwd"] == 0 or launches["bwd"] == 0:
+            raise RuntimeError(f"the A/B launched no K1/K2: {launches}")
+        out[cap] = dict(rows=rows, seconds=secs, launches=launches,
+                        median_best_cost=med("best_cost"),
+                        median_executed_cost=med("executed_cost"),
+                        successes=sum(r["success"] for r in rows),
+                        mean_clip_share=np.mean([r["clip_share"] for r in rows], axis=0).tolist())
+        print(f"  cap {cap}: {secs:.1f} s, K1/K2 launches {launches['fwd']}/{launches['bwd']}; "
+              f"median in-model best {out[cap]['median_best_cost']:.4f}, median executed "
+              f"{out[cap]['median_executed_cost']:.4f}, swing-ups {out[cap]['successes']}/{L}, "
+              f"mean clip share {np.round(out[cap]['mean_clip_share'], 6).tolist()}", flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "pms_ab.json"), "w") as f:
+        f.write(json.dumps({"pms_ab": {str(k): v for k, v in out.items()}}) + "\n")
+    print("  the rows: chiprun_out/pms_ab.json", flush=True)
+
+
 def main():
     global FWD_TOL, GRAD_TOL, FULL_PROFILE
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2708,7 +2843,8 @@ def main():
     parser.add_argument("--kernel-ab", default=None, metavar="PATH",
                         help="time K1/K2 of the checkout at PATH against this one's instead")
     parser.add_argument("--phases", default=None,
-                        help="comma-separated phases 2-16 to run after the build (default all)")
+                        help="comma-separated phases 2-17 to run after the build (default 2-16; "
+                             "17, the 4PMS A/B's card half, runs only when listed)")
     parser.add_argument("--full-profile", action="store_true",
                         help="also profile the steps the default run only times or runs "
                              "(phases 9, 13, 14 (b) and 15; ~+4 min)")
@@ -2884,6 +3020,11 @@ def main():
         t0 = time.perf_counter()
         paths.append(mesh_phase(fp, dev))
         phase(f"16 the mesh: {mesh_ranks()} NCCL rank(s) at full flagship width", t0)
+
+    if 17 in wanted:
+        t0 = time.perf_counter()
+        pms_ab_phase(fp, dev)
+        phase(f"17 the 4PMS A/B's card half: {len(AB_SEEDS)} keys as lanes, caps {AB_CAPS}", t0)
 
     print(smi, flush=True)  # again beside the results, for logs that keep only the end
     if rec is None or wanted != set(range(2, 17)):

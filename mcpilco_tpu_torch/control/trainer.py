@@ -115,6 +115,23 @@ class Monitor(NamedTuple):
     dcr: torch.Tensor
 
 
+def schedule_events(sched, lr0: float = 0.01, p_dropout0: float = 0.25):
+    """The plateau schedule's events from its state after every step,
+    ``sched`` [(step, lr, p_drop, stopped)]: ([(step, lr, p_drop)] at every
+    change, lr and p_drop in float32 as the monitor holds them; the stop
+    step or None)."""
+    f32 = lambda v: float(np.float32(v))
+    out, prev = [], (f32(lr0), f32(p_dropout0))
+    for step, lr, p_drop, stopped in sched:
+        now = (f32(lr), f32(p_drop))
+        if now != prev:
+            out.append((step, *now))
+            prev = now
+        if stopped:
+            return out, step
+    return out, None
+
+
 def _per_lane(t, like):
     """A per-lane tensor [L] broadcast against a leaf [L, ...]."""
     return t.reshape((-1,) + (1,) * (like.dim() - 1))
@@ -511,6 +528,24 @@ class PolicyOptimizer:
             consec=consec * ~reduce_lr, es1=es1, es2=es2, dcr=dcr,
         ), reduce_lr, exit_now
 
+    def replay_schedule(self, costs, cost0: float, lr0: float = 0.01,
+                        p_dropout0: float = 0.25):
+        """The plateau schedule that :meth:`monitor_update` takes on one
+        lane's cost history ``costs`` from its probe cost ``cost0`` (the
+        first ``cost_prev``), replayed on the host: :func:`schedule_events`
+        of it."""
+        f32 = lambda v: torch.tensor([v], dtype=torch.float32)
+        mon = Monitor(lr=f32(lr0), p_drop=f32(p_dropout0), thr=f32(self.min_diff_cost),
+                      gate_step=f32(self.min_step), consec=torch.zeros(1, dtype=torch.int32),
+                      es1=f32(0.0), es2=f32(0.0), dcr=f32(0.0))
+        sched, prev = [], f32(cost0)
+        for s, c in enumerate(costs):
+            mon, _, exit_now = self.monitor_update(mon, torch.tensor([s], dtype=torch.int32),
+                                                   f32(c) - prev)
+            prev = f32(c)
+            sched.append((s + 1, float(mon.lr[0]), float(mon.p_drop[0]), bool(exit_now[0])))
+        return schedule_events(sched, lr0, p_dropout0)
+
     def _reset_monitor(self, buf: _Static, ix, lr0, p_dropout0) -> None:
         """A fresh monitor and Adam count on the lanes ``ix``."""
         lane = buf.lane
@@ -842,7 +877,10 @@ class PolicyOptimizer:
                             .masked_fill_(_lane_mask(reset, s), 0.0))
             at = torch.clamp(step, max=self.max_opt_steps - 1).long().reshape(1, -1, 1).expand(
                 2, -1, 1)
-            logged = torch.where(ok, torch.stack([cost, std]), buf.hist.gather(2, at).squeeze(2))
+            # float32, as the JAX loop's histories (a float64 rollout's cost
+            # is rounded into them)
+            logged = torch.where(ok, torch.stack([cost, std]).to(buf.hist.dtype),
+                                 buf.hist.gather(2, at).squeeze(2))
             buf.hist.scatter_(2, at, logged.unsqueeze(2))
             for last, now in ((buf.states, states), (buf.inputs, inputs)):
                 last.copy_(torch.where(_lane_mask(ok, last, axis=1), now.detach(), last))

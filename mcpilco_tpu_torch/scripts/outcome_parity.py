@@ -10,6 +10,12 @@ A scenario matches its JAX record when both hold:
 (b) the median final cost of the port's successes lies within the JAX
     successes' q25-q75.
 
+A sweep whose summary says ``"complete": false`` (cut by a stop, a watchdog
+or the chip time) is not decided: its row says so and carries no match.
+Beside the rule each row carries the rank test of the two packages'
+successes' costs (Mann-Whitney U, two-sided), as evidence only: it does not
+enter the verdict.
+
 Rates and quartiles are compared, never seed against seed: a one-ulp change
 re-rolls a seed's outcome.  The port's summaries (``repeat``'s
 ``repeat_*.json``) come from ``--port`` (directories or files; by default
@@ -17,7 +23,8 @@ re-rolls a seed's outcome.  The port's summaries (``repeat``'s
 arm as ``summarize_results`` merges them.  Each (scenario, arm) is held
 against the JAX record that ran its config (``RECORDS``, files of the
 checkout's ``results/``).  Quartiles are numpy's linear percentiles.  Needs
-scipy (``fisher_exact``); it reads files only and runs on any host.
+scipy (``fisher_exact``, ``mannwhitneyu``); it reads files only and runs on
+any host.
 """
 
 import argparse
@@ -53,10 +60,22 @@ def outcome(entry) -> dict:
     seeds of one merged (scenario, arm)."""
     ok = {int(k): bool(v) for k, v in entry["per_seed"].items() if v is not None}
     cost = {int(k): v for k, v in entry["per_seed_cost"].items() if v is not None}
+    won = [cost[s] for s in ok if ok[s] and s in cost]
     return {"seeds": len(ok), "successes": sum(ok.values()),
             "rate": sum(ok.values()) / len(ok) if ok else None,
-            "success_cost": _quartiles([cost[s] for s in ok if ok[s] and s in cost]),
+            "success_cost": _quartiles(won), "success_costs": won,
             "all_cost": _quartiles([cost[s] for s in ok if s in cost])}
+
+
+def rank_p(port: dict, ref: dict):
+    """Mann-Whitney U (two-sided) of the port's successes' costs against
+    the JAX successes', or None without successes on either side."""
+    from scipy.stats import mannwhitneyu
+
+    a, b = port["success_costs"], ref["success_costs"]
+    if not a or not b:
+        return None
+    return float(mannwhitneyu(a, b, alternative="two-sided").pvalue)
 
 
 def verdict(port: dict, ref: dict) -> dict:
@@ -73,6 +92,11 @@ def verdict(port: dict, ref: dict) -> dict:
             "match": p >= P_MIN and in_iqr}
 
 
+def _complete(path) -> bool:
+    with open(path) as f:
+        return json.load(f).get("complete", True) is not False
+
+
 def rows(port_paths, root=ROOT) -> list:
     out = []
     for (scenario, arm), entry in sorted(merge(summary_files(port_paths), root).items()):
@@ -82,8 +106,13 @@ def rows(port_paths, root=ROOT) -> list:
         ref = merge([os.path.join(root, f) for f in jax_files], root)
         (ref_entry,) = ref.values()
         port, jax = outcome(entry), outcome(ref_entry)
+        complete = all(_complete(os.path.join(root, f)) for f in entry["files"])
+        rule = verdict(port, jax)
+        if not complete:
+            rule["match"] = None
         out.append({"scenario": scenario + (f" [{arm}]" if arm else ""), "port": port,
-                    "jax": jax, **verdict(port, jax), "port_files": entry["files"],
+                    "jax": jax, "complete": complete, **rule,
+                    "mannwhitney_p": rank_p(port, jax), "port_files": entry["files"],
                     "jax_files": jax_files})
     return out
 
@@ -104,16 +133,24 @@ def main(argv=None) -> list:
         print(json.dumps(found, indent=1))
         return found
     print("| scenario | port | port successes' cost q25 / median / q75 | port all seeds' "
-          "cost | JAX | JAX successes' cost | Fisher p | verdict |")
-    print("|---|---|---|---|---|---|---|---|")
+          "cost | JAX | JAX successes' cost | Fisher p | verdict | successes' rank p "
+          "(evidence) |")
+    print("|---|---|---|---|---|---|---|---|---|")
     for r in found:
         pt, jx = r["port"], r["jax"]
+        if not r["complete"]:
+            print(f"| {r['scenario']} | {pt['successes']}/{pt['seeds']} (sweep incomplete) "
+                  f"| {_fmt(pt['success_cost'])} | {_fmt(pt['all_cost'])} "
+                  f"| {jx['successes']}/{jx['seeds']} | {_fmt(jx['success_cost'])} | - "
+                  f"| not decided | - |")
+            continue
         print(f"| {r['scenario']} | {pt['successes']}/{pt['seeds']} | {_fmt(pt['success_cost'])} "
               f"| {_fmt(pt['all_cost'])} | {jx['successes']}/{jx['seeds']} "
               f"| {_fmt(jx['success_cost'])} | {r['fisher_p']:.3f} "
               f"| {'match' if r['match'] else 'no match'}"
               f"{'' if r['rate_ok'] else ' (rate)'}"
-              f"{'' if r['median_in_jax_iqr'] else ' (median)'} |")
+              f"{'' if r['median_in_jax_iqr'] else ' (median)'} "
+              f"| {'-' if r['mannwhitney_p'] is None else format(r['mannwhitney_p'], '.2g')} |")
     return found
 
 

@@ -282,6 +282,42 @@ def test_outcome_rule_on_the_committed_flagship_sweep():
     assert row["jax"]["success_cost"]["median"] == pytest.approx(7.6304, abs=1e-4)
 
 
+@pytest.mark.parametrize("scenario,p", [
+    ("cartpole_pms", 0.00038), ("cartpole", 0.46), ("cartpole_multi_init", 0.25)])
+def test_outcome_rows_carry_the_rank_test_of_the_successes_costs(scenario, p):
+    """The Mann-Whitney p of the committed sweeps' successes' costs against
+    the JAX records' (two-sided), printed beside Fisher's p as evidence
+    only: the 4PMS successes are cheaper on the port (C.3), the flagship's
+    and multi-init's are not."""
+    from scipy.stats import mannwhitneyu
+
+    from mcpilco_tpu_torch.scripts import outcome_parity
+
+    (row,) = [r for r in outcome_parity.main(["--json"]) if r["scenario"] == scenario]
+    assert row["mannwhitney_p"] == pytest.approx(p, rel=0.02)
+    assert row["mannwhitney_p"] == mannwhitneyu(row["port"]["success_costs"],
+                                                row["jax"]["success_costs"]).pvalue
+    assert len(row["port"]["success_costs"]) == row["port"]["successes"]
+    # evidence only: the verdict is the rule's
+    assert row["match"] == (row["rate_ok"] and row["median_in_jax_iqr"])
+
+
+def test_an_incomplete_sweep_is_not_decided(tmp_path, capsys):
+    """A summary that says ``"complete": false`` (the committed Furuta
+    sweep, cut by the chip time) gets a row, but no verdict."""
+    from mcpilco_tpu_torch.scripts import outcome_parity
+
+    _summary(tmp_path / "repeat_furuta.json", "furuta", {2: True, 3: False}, {2: 36.0, 3: 90.0},
+             complete=False)
+    (row,) = outcome_parity.main(["--port", str(tmp_path), "--json"])
+    assert row["complete"] is False and row["match"] is None
+    assert (row["port"]["seeds"], row["jax"]["seeds"]) == (2, 9)
+    (row,) = [r for r in outcome_parity.main(["--json"]) if r["scenario"] == "furuta"]
+    assert row["complete"] is False and row["match"] is None
+    outcome_parity.main([])
+    assert "| furuta | 0/0 (sweep incomplete) |" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("wins,cost,p_ok,median_ok", [
     (6, 11.36, True, True),     # 6/8 against 35/50, the JAX median
     (6, 11.00, True, False),    # below the JAX successes' q25 (11.094)
