@@ -51,9 +51,10 @@ flagship, against the uncaptured body (``graph=False``).
    with ``chunk_steps_override=4`` (the 9 steps after the uncaptured first
    iteration in chunks of 4, 4 and 1) against the default chunks: costs,
    steps and params bitwise equal, host reads 4 against 2, a
-   ``progress_cb`` tick per read, K1/K2 at L=4; then the farm's optimizer
-   step profiled beside one seed's (host ms/step over 2 steps, device
-   busy, device events per step, idle share), and one seed's 10-step cost
+   ``progress_cb`` tick per read, K1/K2 at L=4; then (with
+   ``--full-profile``) the farm's optimizer step profiled beside one
+   seed's (host ms/step over 2 steps, device busy, device events per step,
+   idle share), and one seed's 10-step cost
    curve farmed against the same seed trained alone (within 0.1% relative);
 8. restart lanes: a 1-trial 4PMS ``reinforce`` of 3 steps (a 500-epoch
    fit) with ``num_restarts=2``, with each lane's cost and the winner;
@@ -89,8 +90,13 @@ flagship, against the uncaptured body (``graph=False``).
     resumed, trial 2 trained, its cost gap to the unbroken run's trial 2;
     (c) ``scripts.apply_policy`` on ``complete_trial1``, 5 plant runs and 400
     particles x 60 steps on the model; (d) ``scripts.repeat --farm`` over 2
-    seeds of 1 trial; (e) ``scripts.repeat --no-farm --jobs 2 --trials 1
-    --extra-flag=--opt-steps=5 --extra-flag=--gp-epochs=300`` over 2 flagship
+    seeds of 2 trials of 3 steps, uncut, then cut by the STOP file at the boundary after
+    trial 0 and resumed with ``--resume`` from the lanes' ``complete_trial0``:
+    the summaries' successes and costs and each lane's ``complete_trial1``
+    bitwise the uncut run's, the cut run's K1/K2 launches the uncut run's
+    trial 0's and the resumed run's its trial 1's; (e) ``scripts.repeat
+    --no-farm --jobs 2 --trials 1 --extra-flag=--opt-steps=5
+    --extra-flag=--gp-epochs=300`` over 2 flagship
     seeds at full width (depth cut only), each a subprocess of
     ``train_cartpole`` on the card with its ``stdout.log``; (f) after
     phase 14, ``scripts.summarize_results --json`` over the summaries of
@@ -116,10 +122,11 @@ flagship, against the uncaptured body (``graph=False``).
     checkpoint round trip restored bitwise;
 14. the seed farm over the other scenarios at full width, depth cut: (a)
     4PMS over 4 seeds (P=400, horizon 90, exact 'se' GP, BPTT clip 0.2,
-    300-epoch fits, 1 trial of 5 steps), K1/K2 with 4 lanes, the device
+    300-epoch fits, 1 trial of 3 steps), K1/K2 with 4 lanes, the device
     offline estimator against the host path on the farm's exploration
-    trials, the step profile beside one seed's and beside one seed as a
-    lane axis of size 1 (equal device events), one seed's 5-step curve
+    trials, one seed's step profiled beside that seed as a lane axis of
+    size 1 (equal device events; with ``--full-profile`` the farm's step
+    beside them), one seed's 3-step curve
     farmed against alone (within 5e-3 relative); (b) Furuta's shipped
     semiparametric model over 4 seeds (1 trial of 3 steps, no kernel
     launch), its curve (with ``--full-profile`` its step profile beside one
@@ -1117,11 +1124,12 @@ def run_farm(fp, dev, scen, cfg, seeds, kernels, host_plant=False):
     return agent, farm, res, launches
 
 
-def farm_step_profile(agent, farm, host_steps, window, lane_one=False):
-    """The farm's optimizer step on its last posteriors beside one seed's
-    (the seed's posterior without a lane axis: the single-seed step), and
-    with ``lane_one`` beside that seed kept as a lane axis of size 1, which
-    must not issue more device events per step than the single-seed step.
+def farm_step_profile(agent, farm, host_steps, window, lane_one=False, whole=True):
+    """The farm's optimizer step on its last posteriors (with ``whole``)
+    beside one seed's (the seed's posterior without a lane axis: the
+    single-seed step), and with ``lane_one`` that seed kept as a lane axis of
+    size 1, which must not issue more device events per step than the
+    single-seed step.
     The profiler's count of one step moves by up to ~0.4% between windows
     of the same code (H100 runs); the trap this guards against (autograd
     adding two reductions and two fills per rollout step) adds ~1.35% to a
@@ -1134,19 +1142,24 @@ def farm_step_profile(agent, farm, host_steps, window, lane_one=False):
     keys = [prng.fold(prng.stream(k, prng.STREAM_ROLLOUT), 1) for k in farm.keys]
     first = lambda tree: tree_map(lambda t: t[:1], tree)
     one = lambda tree: tree_map(lambda t: t[0], tree)
-    runs = {"farm": lane_runner(agent, keys, farm.policy_params, farm.gp_params, farm.posterior, 1),
-            "one": lane_runner(agent, keys[:1], first(farm.policy_params), one(farm.gp_params),
+    runs = {"one": lane_runner(agent, keys[:1], first(farm.policy_params), one(farm.gp_params),
                                one(farm.posterior), 1)}
+    if whole:
+        runs["farm"] = lane_runner(agent, keys, farm.policy_params, farm.gp_params,
+                                   farm.posterior, 1)
     if lane_one:
         runs["lane1"] = lane_runner(agent, keys[:1], first(farm.policy_params),
                                     first(farm.gp_params), first(farm.posterior), 1)
     p = {k: profile_steps(run, host_steps=host_steps, window=window) for k, run in runs.items()}
-    f, o = p["farm"], p["one"]
-    print(f"  farm step, S={S}: {f['host_ms']:.2f} ms/step of all seeds ({f['host_ms'] / S:.2f} "
-          f"ms/seed-step) against S x one seed's {S * o['host_ms']:.2f} (one seed "
-          f"{o['host_ms']:.2f}); device busy {f['busy_ms']:.2f} ms/step (one seed "
-          f"{o['busy_ms']:.2f}); device events per step {f['events']:.0f} (one seed "
-          f"{o['events']:.0f}); idle share {f['idle']:.3f} (one seed {o['idle']:.3f})", flush=True)
+    o = p["one"]
+    if whole:
+        f = p["farm"]
+        print(f"  farm step, S={S}: {f['host_ms']:.2f} ms/step of all seeds "
+              f"({f['host_ms'] / S:.2f} ms/seed-step) against S x one seed's "
+              f"{S * o['host_ms']:.2f} (one seed {o['host_ms']:.2f}); device busy {f['busy_ms']:.2f} ms/step (one seed "
+              f"{o['busy_ms']:.2f}); device events per step {f['events']:.0f} (one seed "
+              f"{o['events']:.0f}); idle share {f['idle']:.3f} (one seed {o['idle']:.3f})",
+              flush=True)
     if lane_one:
         l1 = p["lane1"]
         a, b = l1["events_by_kernel"], o["events_by_kernel"]
@@ -1241,7 +1254,8 @@ def farm_phase(fp, dev):
     MESH_INPUTS["farm"] = (res, dict(graph_counts))  # phase 16's one-card farm
     more = farm_chunk_check(farm, fp)
     launches = {k: launches[k] + more[k] for k in launches}
-    farm_step_profile(agent, farm, host_steps=2, window=2)
+    if FULL_PROFILE:  # depth cut for the default run's time
+        farm_step_profile(agent, farm, host_steps=2, window=2)
     # the fits sum in another order when batched; 10 BPTT steps stay close
     # (5.77e-05 on the H100, while two seeds' costs differ by ~4e-3)
     farmed_against_alone(cartpole, cfg, farm, res, dev, 10, 1e-3)
@@ -1392,7 +1406,7 @@ def host_plant_farm(fp, dev):
 def farm_scenarios_phase(fp, dev):
     """Phase 14: the seed farm over the other scenarios at full width, depth
     cut.  (a) 4PMS over ``FARM_SEEDS`` seeds (P=400, horizon 90, exact 'se'
-    GP, BPTT clip 0.2, 300-epoch fits, 1 trial of 5 steps): K1/K2 with one
+    GP, BPTT clip 0.2, 300-epoch fits, 1 trial of 3 steps): K1/K2 with one
     lane per seed, the device estimator against the host path, (e) the
     legacy variance operator on the farm's posteriors, the step profile
     beside one seed's and beside a lane axis of size 1, one seed's curve
@@ -1417,17 +1431,26 @@ def farm_scenarios_phase(fp, dev):
 
     print("  (a) 4PMS:", flush=True)
     # depth cut to make room for phase 16: 300-epoch fits (500), profiled
-    # windows of 1 step (2)
-    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(5,), gp_epochs=300)
+    # windows of 1 step (2); for phase 12 (d)'s resumed sweep: 3 steps (5)
+    cfg = cartpole_pms.CartpolePMSConfig(seed=1, num_trials=1, opt_steps=(3,), gp_epochs=300)
     agent, farm, res, launches = run_farm(fp, dev, cartpole_pms, cfg, range(1, FARM_SEEDS + 1),
                                           kernels=True)
     counted.append(launches)
     pms = dict(launches=launches, optimizer_steps=int(res.trial_logs[0].steps_done.max()))
+    laps = [("farm", time.perf_counter())]
     pms_estimator_check(agent, farm, cfg, dev)
+    laps.append(("estimator", time.perf_counter()))
     legacy_variance_check(agent, farm, fp, dev)
-    farm_step_profile(agent, farm, host_steps=2, window=1, lane_one=True)
+    laps.append(("legacy variance", time.perf_counter()))
+    # the farm's own step profiled only with --full-profile (three profiled
+    # steps took 49.5 s of (a)'s 82 s on the H100); the lane-axis check stays
+    farm_step_profile(agent, farm, host_steps=2, window=1, lane_one=True, whole=FULL_PROFILE)
+    laps.append(("step profiles", time.perf_counter()))
     # the sensor chain has gain 1/dt = 30: the CPU test's tolerance
-    farmed_against_alone(cartpole_pms, cfg, farm, res, dev, 5, 5e-3)
+    farmed_against_alone(cartpole_pms, cfg, farm, res, dev, 3, 5e-3)
+    laps.append(("alone", time.perf_counter()))
+    print("  (a) seconds: " + ", ".join(f"{name} {t - prev:.1f}" for (name, t), (_, prev)
+                                        in zip(laps, [("", t0)] + laps[:-1])), flush=True)
     del agent, farm, res
     part("a")
 
@@ -1550,13 +1573,16 @@ def entry_points_phase(fp, dev):
     FWD_TOL.  (b) ``train_cartpole.run(cfg, auto_resume=True)``: 2 trials
     resumed, trial 2 trained; the gap to the unbroken run's trial 2.  (c)
     ``apply_policy`` on ``complete_trial1``, on the plant (5 runs) and on the
-    model (400 particles x 60 steps).  (d) ``repeat --farm`` over 2 seeds.
-    (e) ``repeat --jobs 2`` over 2 seeds at full width as subprocesses,
+    model (400 particles x 60 steps).  (d) ``repeat --farm`` over 2 seeds
+    of 2 trials of 3 steps, uncut, then cut by the STOP file after trial 0 and resumed
+    with ``--resume``: bitwise the uncut sweep, K1/K2 launched for trial 1
+    only.  (e) ``repeat --jobs 2`` over 2 seeds at full width as subprocesses,
     1 trial of 5 steps each and 300-epoch fits.  Returns
     the K1/K2 launches of (a)-(d)."""
     import os
     import shutil
 
+    from mcpilco_tpu_torch.parallel.multiseed import SeedFarm
     from mcpilco_tpu_torch.scenarios import cartpole
     from mcpilco_tpu_torch.scripts import apply_policy, repeat, train_cartpole
 
@@ -1663,22 +1689,85 @@ def entry_points_phase(fp, dev):
           f"on the model, 400 particles x 60 steps: cost {total:.4f} (particle std "
           f"{spread:.4f})", flush=True)
 
-    # (d) the farmed sweep
+    # (d) the farmed sweep, 2 trials: uncut, then cut by the STOP file at the
+    # boundary after trial 0 and resumed from its lanes' checkpoints; depth
+    # cut to 3 steps per trial (5) to hold the default run near 600 s
+    farm_argv = ["--scenario", "cartpole", "--farm", "--num-seeds", "2", "--device", str(dev),
+                 "--scenario-kw", "num_trials=2", "--scenario-kw", "opt_steps=(3,)",
+                 "--scenario-kw", "gp_epochs=300"]
+    cut_tag = "chip_smoke_cut"
+    cut_summary = os.path.join(root, f"repeat_cartpole_{cut_tag}.json")
+    stop_file = cut_summary[: -len(".json")] + ".STOP"
+    for path in (cut_summary, stop_file):
+        if os.path.exists(path):
+            os.remove(path)
+    lanes = {tag: [os.path.join(root, f"cartpole_{tag}_{s}") for s in (1, 2)]
+             for tag in ("chip_smoke", cut_tag)}
+    for d in lanes["chip_smoke"] + lanes[cut_tag]:
+        shutil.rmtree(d, ignore_errors=True)
+    save_lanes, marks = SeedFarm.save_lanes, []
+
+    def since(mark):
+        return {k: fp.launches[k] - mark[k] for k in mark}
+
+    def marked(self, trial, *a):  # the launches at each trial's lane checkpoints
+        save_lanes(self, trial, *a)
+        torch.cuda.synchronize()
+        marks.append(dict(fp.launches))
+
+    def marked_then_stop(self, trial, *a):
+        marked(self, trial, *a)
+        if trial == 0:
+            open(stop_file, "w").close()
+
     fp.reset_launches()
-    rc = repeat.main(["--scenario", "cartpole", "--farm", "--num-seeds", "2", "--device", str(dev),
-                      "--out-tag", "chip_smoke", "--scenario-kw", "num_trials=1",
-                      "--scenario-kw", "opt_steps=(5,)", "--scenario-kw", "gp_epochs=300"])
+    runs = []
+    try:
+        for hook, argv in ((marked, ["--out-tag", "chip_smoke"]),
+                           (marked_then_stop, ["--out-tag", cut_tag]),
+                           (marked, ["--out-tag", cut_tag, "--resume"])):
+            SeedFarm.save_lanes = hook
+            start = dict(fp.launches)
+            rc = repeat.main(farm_argv + argv)
+            torch.cuda.synchronize()
+            runs.append((rc, since(start)))
+    finally:
+        SeedFarm.save_lanes = save_lanes
     count("d")
-    with open(summary_path) as f:
-        summary = json.load(f)
-    seed_costs = list(summary["per_seed_cost"].values())
-    if rc != 0 or summary["seeds"] != [1, 2] or not all(
+    uncut = [marks[0], {k: marks[1][k] - marks[0][k] for k in marks[0]}]
+    summaries = []
+    for path in (summary_path, cut_summary):
+        with open(path) as f:
+            summaries.append(json.load(f))
+    seed_costs = list(summaries[0]["per_seed_cost"].values())
+    with open(os.path.join(lanes[cut_tag][0], "stdout.log")) as f:
+        resumed_log = f.read()
+    if [rc for rc, _ in runs] != [0, repeat.STOP_EXIT_CODE, 0] or \
+            summaries[0]["seeds"] != [1, 2] or not all(
             c is not None and math.isfinite(c) for c in seed_costs) or \
-            fp.launched_lanes["fwd"] != 2 * fp.launches["fwd"]:
-        raise RuntimeError(f"repeat --farm: rc {rc}, summary {summary}, lanes "
-                           f"{fp.launched_lanes}")
-    print(f"  repeat --farm, 2 seeds: costs {seed_costs}, success rate "
-          f"{summary['success_rate']}", flush=True)
+            fp.launched_lanes["fwd"] != 2 * fp.launches["fwd"] or \
+            "==== resumed after trial 0 ====" not in resumed_log:
+        raise RuntimeError(f"repeat --farm: runs (rc, launches) {runs}, summaries {summaries}, "
+                           f"lanes {fp.launched_lanes}")
+    # the cut-and-resumed sweep is the uncut one: the summaries' successes and
+    # costs, and every array of each lane's complete_trial1, bitwise; the cut
+    # run launched K1/K2 for trial 0 only and the resumed run for trial 1 only
+    same = all(summaries[0][k] == summaries[1][k] for k in ("per_seed", "per_seed_cost"))
+    for a, b in zip(*lanes.values()):
+        for name in sorted(os.listdir(os.path.join(a, "complete_trial1"))):
+            if name.endswith(".npz"):
+                with np.load(os.path.join(a, "complete_trial1", name)) as x, \
+                        np.load(os.path.join(b, "complete_trial1", name)) as y:
+                    same = same and sorted(x.files) == sorted(y.files) and all(
+                        np.array_equal(x[f], y[f]) for f in x.files)
+    if not same or runs[1][1] != uncut[0] or runs[2][1] != uncut[1] or uncut[1]["fwd"] == 0:
+        raise RuntimeError(f"the cut-and-resumed farmed sweep differs from the uncut one: "
+                           f"summaries {summaries}, launches uncut per trial {uncut}, cut "
+                           f"{runs[1][1]}, resumed {runs[2][1]}, arrays equal: {same}")
+    print(f"  repeat --farm, 2 seeds x 2 trials: costs {seed_costs}, success rate "
+          f"{summaries[0]['success_rate']}; cut by the STOP file after trial 0 and resumed: "
+          f"successes, costs and each lane's complete_trial1 bitwise the uncut run's; launches "
+          f"per trial {uncut}, cut run {runs[1][1]}, resumed run {runs[2][1]}", flush=True)
 
     # (e) subprocess seeds, two at once on the card (their launches are the
     # children's)
@@ -1713,7 +1802,7 @@ def summarize_phase():
     from mcpilco_tpu_torch.scripts import summarize_results
 
     # each summary's row: its scenario and arm
-    expect = {"cartpole_chip_smoke": "cartpole [num_trials=1 opt_steps=(5,) gp_epochs=300]",
+    expect = {"cartpole_chip_smoke": "cartpole [num_trials=2 opt_steps=(3,) gp_epochs=300]",
               f"cartpole_{JOBS_TAG}": "cartpole [--trials=1 --opt-steps=5 --gp-epochs=300]",
               "cartpole_pms_chip_smoke": "cartpole_pms [--trials=1 opt_steps=(3,) gp_epochs=300]"}
     files = {name: os.path.join("results_tmp", "torch", f"repeat_{name}.json") for name in expect}

@@ -22,7 +22,7 @@ import json
 import os
 import re
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,6 +70,111 @@ class TrialLog:
     # with num_restarts > 1: each restart's winner metric, and the winner
     restart_costs: Optional[np.ndarray] = None
     restart_winner: Optional[int] = None
+
+
+def complete_trials(log_dir: str) -> dict:
+    """{trial index: path} of the ``complete_trial<i>`` checkpoints in
+    ``log_dir`` (a directory without its manifest is no checkpoint)."""
+    found = {}
+    for path in glob.glob(os.path.join(log_dir, "complete_trial*")):
+        m = re.search(r"complete_trial(\d+)$", path)
+        if m and os.path.isfile(os.path.join(path, "manifest.json")):
+            found[int(m.group(1))] = path
+    return found
+
+
+def scenario_meta(name: Optional[str], config) -> Optional[dict]:
+    """A checkpoint's ``scenario`` meta: the scenario's name and config."""
+    if config is None:
+        return None
+    return {"name": name, "config": dataclasses.asdict(config)}
+
+
+def checkpoint_state(*, seed: int, policy_params, expl_params, gp_x, gp_y, gp_params,
+                     num_collections: int, num_exploration_trials: int, dt: float, stage: str,
+                     scenario: Optional[dict], trials: List[TrialData],
+                     trial_logs: List[TrialLog]) -> Tuple[dict, dict]:
+    """The (trees, meta) of a checkpoint: tree names, leaf order and meta
+    keys are the JAX package's; the restart fields ride along in
+    ``trial_log_scalars``.  ``MCPilco.save_checkpoint`` writes them, and the
+    seed farm each lane's (``SeedFarm.save_lanes``)."""
+    trees = {"policy_params": policy_params, "expl_params": expl_params,
+             "gp_x": gp_x, "gp_y": gp_y}
+    if gp_params is not None:
+        trees["gp_params"] = gp_params
+    for i, l in enumerate(trial_logs):
+        trees[f"trial_log_{i}"] = {
+            "cost": l.cost_history,
+            "std": l.std_history,
+            "p_states": l.particles_states,
+            "p_inputs": l.particles_inputs,
+        }
+    meta = {
+        "seed": seed,
+        "num_collections": num_collections,
+        "num_exploration_trials": num_exploration_trials,
+        "dt": dt,
+        "stage": stage,
+        "scenario": scenario,
+        "trial_measured": [t.measured.tolist() for t in trials],
+        "trial_inputs": [t.inputs.tolist() for t in trials],
+        "trial_true": [t.true.tolist() for t in trials],
+        "trial_noisy": [t.noisy.tolist() for t in trials],
+        "num_trial_logs": len(trial_logs),
+        "trial_log_scalars": [
+            {
+                "steps_done": int(l.steps_done),
+                "reinit_count": int(l.reinit_count),
+                "wall_clock_s": float(l.wall_clock_s),
+                "restart_costs": (None if l.restart_costs is None
+                                  else np.asarray(l.restart_costs).tolist()),
+                "restart_winner": (None if l.restart_winner is None
+                                   else int(l.restart_winner)),
+            }
+            for l in trial_logs
+        ],
+    }
+    return trees, meta
+
+
+def check_resume(path: str, scenario: Optional[dict],
+                 farm_seeds: Optional[List[int]] = None) -> None:
+    """Refuse to resume from the checkpoint at ``path`` unless the same kind
+    of run wrote it: a seed trained alone (``farm_seeds`` None) or the farm
+    batch ``farm_seeds``.  A seed's bits depend on the batch it shares, and a
+    farm lane keeps no raw trials, which a sequential trial reads.  Refuse
+    it too when it was written under another scenario config (``scenario``,
+    as ``scenario_meta`` gives it): log dirs outlive sweeps, and resuming
+    after a config change would replay stale state as a fresh sample.  The
+    configs are compared JSON-normalized, ``log_dir`` left out; no config
+    check when either side has none."""
+    meta = ckpt.peek_meta(path)
+    stored_seeds = meta.get("farm_seeds")
+    if stored_seeds != farm_seeds:
+        def by(seeds):
+            return "a seed trained alone" if seeds is None else f"the farm batch {seeds}"
+        raise RuntimeError(
+            f"resume refused: {path} was written by {by(stored_seeds)}, not by {by(farm_seeds)}"
+            + ("; resume it with that batch's seeds and --farm-batch (repeat --farm --resume)"
+               if stored_seeds is not None else "")
+            + ", or delete it to start the seed afresh")
+    stored = meta.get("scenario")
+    if not stored or scenario is None:
+        return
+    current = json.loads(json.dumps(scenario, default=str))
+    for side in (stored, current):
+        side.get("config", {}).pop("log_dir", None)
+    if stored == current:
+        return
+    s_cfg, c_cfg = stored.get("config", {}), current.get("config", {})
+    diffs = [f"{k}: checkpoint={s_cfg.get(k)!r} current={c_cfg.get(k)!r}"
+             for k in sorted(set(s_cfg) | set(c_cfg)) if s_cfg.get(k) != c_cfg.get(k)]
+    if stored.get("name") != current.get("name"):
+        diffs.insert(0, f"scenario: {stored.get('name')!r} vs {current.get('name')!r}")
+    raise RuntimeError(
+        f"resume refused: checkpoint {path} was written under a different scenario config "
+        f"({'; '.join(diffs) or 'structural change'}). Delete the stale log dir (or re-run "
+        "without resuming) to start fresh.")
 
 
 class MCPilco:
@@ -530,97 +635,28 @@ class MCPilco:
         """Restore the newest post-interaction checkpoint (``complete_trial<i>``)
         in ``log_dir``; ``reinforce`` then continues at the next trial.
         Returns the number of completed trials restored (0: nothing to
-        resume)."""
-        if not self.log_dir:
-            return 0
-        found = [(int(m.group(1)), d)
-                 for d in glob.glob(os.path.join(self.log_dir, "complete_trial*"))
-                 if (m := re.search(r"complete_trial(\d+)$", d))]
+        resume).  Raises on a checkpoint of another scenario config or of a
+        farm lane (``check_resume``)."""
+        found = complete_trials(self.log_dir) if self.log_dir else {}
         if not found:
             return 0
-        latest = max(found)[1]
-        self._check_resume_config(latest)
+        latest = found[max(found)]
+        check_resume(latest, scenario_meta(self.scenario_name, self.scenario_config))
         self.load_checkpoint(latest)
         return len(self.trial_logs)
 
-    def _scenario_meta(self) -> Optional[dict]:
-        if self.scenario_config is None:
-            return None
-        return {"name": self.scenario_name, "config": dataclasses.asdict(self.scenario_config)}
-
-    def _check_resume_config(self, path: str) -> None:
-        """Refuse to resume from a checkpoint written under another scenario
-        config: log dirs outlive sweeps, and resuming after a config change
-        would replay stale state as a fresh sample.  Compares the
-        JSON-normalized configs, ``log_dir`` left out; a no-op when either
-        side has no scenario config."""
-        if self.scenario_config is None:
-            return
-        stored = ckpt.peek_meta(path).get("scenario")
-        if not stored:
-            return
-        current = json.loads(json.dumps(self._scenario_meta(), default=str))
-        for side in (stored, current):
-            side.get("config", {}).pop("log_dir", None)
-        if stored == current:
-            return
-        s_cfg, c_cfg = stored.get("config", {}), current.get("config", {})
-        diffs = [f"{k}: checkpoint={s_cfg.get(k)!r} current={c_cfg.get(k)!r}"
-                 for k in sorted(set(s_cfg) | set(c_cfg)) if s_cfg.get(k) != c_cfg.get(k)]
-        if stored.get("name") != current.get("name"):
-            diffs.insert(0, f"scenario: {stored.get('name')!r} vs {current.get('name')!r}")
-        raise RuntimeError(
-            f"auto-resume refused: checkpoint {path} was written under a "
-            f"different scenario config ({'; '.join(diffs) or 'structural change'}). "
-            "Delete the stale log dir (or re-run without --auto-resume) to start fresh."
-        )
-
     def save_checkpoint(self, stage: str) -> None:
         """Write the agent's state to ``<log_dir>/<stage>`` (no-op without a
-        log dir).  Tree names, leaf order and meta keys are the JAX
-        package's; the restart fields ride along in ``trial_log_scalars``."""
+        log dir), as ``checkpoint_state`` lays it out."""
         if not self.log_dir:
             return
-        trees = {
-            "policy_params": self.policy_params,
-            "expl_params": self.expl_params,
-            "gp_x": self.gp_x,
-            "gp_y": self.gp_y,
-        }
-        if self.gp_params is not None:
-            trees["gp_params"] = self.gp_params
-        for i, l in enumerate(self.trial_logs):
-            trees[f"trial_log_{i}"] = {
-                "cost": l.cost_history,
-                "std": l.std_history,
-                "p_states": l.particles_states,
-                "p_inputs": l.particles_inputs,
-            }
-        meta = {
-            "seed": self.seed,
-            "num_collections": self.num_collections,
-            "num_exploration_trials": self.num_exploration_trials,
-            "dt": self.dt,
-            "stage": stage,
-            "scenario": self._scenario_meta(),
-            "trial_measured": [t.measured.tolist() for t in self.trials],
-            "trial_inputs": [t.inputs.tolist() for t in self.trials],
-            "trial_true": [t.true.tolist() for t in self.trials],
-            "trial_noisy": [t.noisy.tolist() for t in self.trials],
-            "num_trial_logs": len(self.trial_logs),
-            "trial_log_scalars": [
-                {
-                    "steps_done": int(l.steps_done),
-                    "reinit_count": int(l.reinit_count),
-                    "wall_clock_s": float(l.wall_clock_s),
-                    "restart_costs": (None if l.restart_costs is None
-                                      else np.asarray(l.restart_costs).tolist()),
-                    "restart_winner": (None if l.restart_winner is None
-                                       else int(l.restart_winner)),
-                }
-                for l in self.trial_logs
-            ],
-        }
+        trees, meta = checkpoint_state(
+            seed=self.seed, policy_params=self.policy_params, expl_params=self.expl_params,
+            gp_x=self.gp_x, gp_y=self.gp_y, gp_params=self.gp_params,
+            num_collections=self.num_collections,
+            num_exploration_trials=self.num_exploration_trials, dt=self.dt, stage=stage,
+            scenario=scenario_meta(self.scenario_name, self.scenario_config),
+            trials=self.trials, trial_logs=self.trial_logs)
         ckpt.save(os.path.join(self.log_dir, stage), trees, meta)
 
     def load_checkpoint(self, path: str) -> None:

@@ -36,6 +36,15 @@ every group's results in seed order on every rank.  On a shared 2D
 ``"p"``.  A group computes what one farm of its own seeds computes, bit
 for bit on the same device: the groups exchange nothing before the results.
 
+Given ``log_dirs`` (one directory per seed), ``run`` writes each lane's state
+after every trial's collection to ``<log dir>/complete_trial<i>``, where the
+sequential ``MCPilco.reinforce`` writes its own, in the layout of
+``MCPilco.save_checkpoint``, and keeps only each lane's newest; ``run(resume=
+True)`` continues a batch from the newest trial every lane completed, bit for
+bit the batch that was never cut (on the card, for the same seeds: a seed's
+bits depend on the batch it shares, so a lane set written for other seeds is
+refused).
+
 The optimizer reads the lanes back once per chunk of iterations, sized as
 the JAX farm sizes its chunks: the first by ``first_chunk_steps`` (the
 seeds and the horizon scale a chunk's device time), the later ones by what
@@ -47,17 +56,22 @@ depends on the chunks.
 from __future__ import annotations
 
 import dataclasses
+import os
+import shutil
 import time
 from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..control.mc_pilco import MCPilco, ModelFitOptions, PolicyOptOptions
+from ..control.mc_pilco import (MCPilco, ModelFitOptions, PolicyOptOptions, TrialLog,
+                                 check_resume, checkpoint_state, complete_trials,
+                                 scenario_meta)
 from ..envs.plants import ODEPlant, offline_velocity_estimation_lanes
 from ..models import sod as sod_mod
 from ..models.gp import GPData, first_finite, tree_map
 from ..ops import linalg
+from ..utils import checkpoint as ckpt
 from ..utils import prng
 from . import mesh as mesh_mod
 
@@ -76,6 +90,11 @@ class FarmTrialLog(NamedTuple):
     wall_clock_s: float
 
 
+# a FarmTrialLog's per-seed rows, as a lane checkpoint keeps them
+_LANE_FIELDS = ("cost_history", "steps_done", "reinit_count", "mll_last", "control_true",
+                "control_inputs")
+
+
 class FarmResult(NamedTuple):
     seeds: np.ndarray  # [S]
     trial_logs: List[FarmTrialLog]
@@ -88,6 +107,26 @@ class FarmResult(NamedTuple):
     @property
     def final_inputs(self) -> np.ndarray:
         return self.trial_logs[-1].control_inputs
+
+
+class FarmStopped(Exception):
+    """``SeedFarm.run``'s ``stop`` asked to end the batch at the boundary
+    after trial ``trial``, whose lane checkpoints are written."""
+
+    def __init__(self, trial: int):
+        super().__init__(f"farm batch stopped after trial {trial}")
+        self.trial = trial
+
+
+def _lane_scenario(agent, seed: int, log_dir: str) -> Optional[dict]:
+    """The agent's scenario meta as lane ``seed`` of ``log_dir`` would write
+    it trained alone."""
+    cfg = agent.scenario_config
+    if cfg is not None:
+        fields = {f.name for f in dataclasses.fields(cfg)}
+        cfg = dataclasses.replace(cfg, **{k: v for k, v in (("seed", seed), ("log_dir", log_dir))
+                                          if k in fields})
+    return scenario_meta(agent.scenario_name, cfg)
 
 
 def first_chunk_steps(chunk_steps: int, num_seeds: int, horizon: int) -> int:
@@ -152,6 +191,8 @@ class SeedFarm:
                 "the seed farm composes with particle-axis sharding only on a shared 2D "
                 "('s', 'p') mesh (parallel.mesh.make_seed_particle_mesh); a plain particle "
                 "mesh on the optimizer conflicts with the farm's seed axis")
+        # the trial run() resumed after, if it did
+        self.resumed_trial: Optional[int] = None
         # this rank's seeds: its seed group's share, or all of them
         self.local_seeds = (list(self.seeds) if self.mesh is None
                             else mesh_mod.shard_seeds(self.mesh, self.seeds))
@@ -349,19 +390,120 @@ class SeedFarm:
             first_chunk=first_chunk_steps(opt.chunk_steps, len(self.local_seeds), opt.horizon),
             on_read=self._tick)
 
+    # ---------------------------------------------------------- checkpoints
+
+    def save_lanes(self, trial: int, logs: List[FarmTrialLog], log_dirs: Sequence[str],
+                   num_explorations: int) -> None:
+        """Each lane's state after trial ``trial``'s collection, written to
+        ``log_dirs[i]/complete_trial<trial>``; then each lane's other
+        ``complete_trial*`` removed, only once every lane is written, so a cut
+        anywhere leaves every lane a trial they all completed.
+
+        What the next trial reads: the dataset (``gp_x`` / ``gp_y``), the
+        policy, ``num_collections`` and the trial logs.  The trees and meta
+        are ``checkpoint_state``'s, as ``MCPilco.save_checkpoint`` writes
+        them, so ``load_checkpoint`` restores a lane's dataset, GP and policy;
+        a lane keeps no raw trials (``trial_*`` are empty, std and particle
+        rollouts too), so ``farm_seeds`` in its meta makes ``auto_resume``
+        refuse it, and ``farm_log_<t>`` holds its ``FarmTrialLog`` rows as
+        they were.
+        ``expl_params`` and every key are functions of the seed and the trial
+        index, and ``fit_model`` re-initializes the GP, so a resume reads
+        neither; the optimizer's ``_measured_rate`` only sizes its chunks,
+        and no number depends on them."""
+        a = self.agent
+        empty = np.zeros(0, np.float32)
+        for i, (seed, log_dir) in enumerate(zip(self.local_seeds, log_dirs)):
+            lane_logs = [TrialLog(cost_history=log.cost_history[i, : int(log.steps_done[i])],
+                                  std_history=empty, steps_done=int(log.steps_done[i]),
+                                  particles_states=empty, particles_inputs=empty,
+                                  reinit_count=int(log.reinit_count[i]),
+                                  wall_clock_s=float(log.wall_clock_s)) for log in logs]
+            trees, meta = checkpoint_state(
+                seed=seed, policy_params=tree_map(lambda t: t[i], self.policy_params),
+                expl_params=tree_map(lambda t: t[i], self.expl_params),
+                gp_x=self.gp_x[i], gp_y=self.gp_y[i],
+                gp_params=tree_map(lambda t: t[i], self.gp_params),
+                num_collections=self.num_collections, num_exploration_trials=num_explorations,
+                dt=a.dt, stage=f"complete_trial{trial}",
+                scenario=_lane_scenario(a, seed, log_dir), trials=[], trial_logs=lane_logs)
+            trees.update({f"farm_log_{t}": {f: getattr(log, f)[i] for f in _LANE_FIELDS}
+                          for t, log in enumerate(logs)})
+            meta.update(farm_seeds=[int(s) for s in self.seeds], farm_lane=i)
+            path = os.path.join(log_dir, f"complete_trial{trial}")
+            shutil.rmtree(path + ".tmp", ignore_errors=True)
+            ckpt.save(path + ".tmp", trees, meta)
+            shutil.rmtree(path, ignore_errors=True)
+            os.replace(path + ".tmp", path)
+        for log_dir in log_dirs:
+            for t, path in complete_trials(log_dir).items():
+                if t != trial:
+                    shutil.rmtree(path)
+
+    def restore_lanes(self, log_dirs: Sequence[str]) -> List[FarmTrialLog]:
+        """The newest trial that every lane's checkpoint in ``log_dirs``
+        completed: the lanes' datasets, policies and ``num_collections``
+        restored, and the batch's trial logs so far returned ([] when some
+        lane has none).  Raises on a checkpoint written for another batch of
+        seeds, by a seed trained alone or under another scenario config
+        (``check_resume``)."""
+        a = self.agent
+        seeds = [int(s) for s in self.seeds]
+        found = [complete_trials(d) for d in log_dirs]
+        for seed, log_dir, lane in zip(seeds, log_dirs, found):
+            for path in lane.values():
+                check_resume(path, _lane_scenario(a, seed, log_dir), farm_seeds=seeds)
+        common = set.intersection(*(set(lane) for lane in found))
+        if not common:
+            return []
+        trial = max(common)
+        lane0 = tree_map(lambda t: t[0], self.policy_params)
+        tmpl = {f: np.zeros(0) for f in _LANE_FIELDS}
+        parts = []
+        for lane in found:
+            trees, meta = ckpt.load(lane[trial], {
+                "policy_params": lane0, "gp_x": self.gp_x[0], "gp_y": self.gp_y[0],
+                **{f"farm_log_{t}": tmpl for t in range(trial + 1)}}, a.device)
+            parts.append((trees, meta))
+        self.policy_params = _stack([trees["policy_params"] for trees, _ in parts])
+        self.gp_x = np.stack([np.asarray(trees["gp_x"], np.float32) for trees, _ in parts])
+        self.gp_y = np.stack([np.asarray(trees["gp_y"], np.float32) for trees, _ in parts])
+        self.num_collections = int(parts[0][1]["num_collections"])
+        return [FarmTrialLog(
+            **{f: np.stack([trees[f"farm_log_{t}"][f] for trees, _ in parts])
+               for f in _LANE_FIELDS},
+            wall_clock_s=float(parts[0][1]["trial_log_scalars"][t]["wall_clock_s"]))
+            for t in range(trial + 1)]
+
     # ---------------------------------------------------------- main loop
 
     def run(self, *, num_trials: int, T_exploration: float, T_control: float,
             model_fit_options: Sequence[ModelFitOptions],
             policy_opt_options: Sequence[PolicyOptOptions], num_explorations: int = 1,
-            verbose: bool = True) -> FarmResult:
-        """``MCPilco.reinforce`` for every seed at once."""
-        for e in range(num_explorations):
-            if verbose:
-                print(f"[seed-farm] exploration {e} ({len(self.local_seeds)} seeds)")
-            self.collect(T_exploration, trial_index=e, exploration=True)
+            verbose: bool = True, log_dirs: Optional[Sequence[str]] = None,
+            resume: bool = False, stop: Optional[Callable[[], bool]] = None) -> FarmResult:
+        """``MCPilco.reinforce`` for every seed at once.  With ``log_dirs``
+        (one per seed, no mesh) every trial's lane checkpoints are written
+        there, and ``resume`` continues from the newest trial every lane
+        completed (``self.resumed_trial``); ``stop()``, asked at each trial
+        boundary after the checkpoints (the last trial's excepted), ends the
+        batch with :class:`FarmStopped`."""
+        if log_dirs is not None and (self.mesh is not None or len(log_dirs) != len(self.seeds)):
+            raise ValueError("lane checkpoints take one log dir per seed, and no mesh")
         logs: List[FarmTrialLog] = []
-        for trial in range(num_trials):
+        if resume and log_dirs is not None:
+            logs = self.restore_lanes(log_dirs)
+        self.resumed_trial = len(logs) - 1 if logs else None
+        if logs:
+            if verbose:
+                print(f"[seed-farm] resumed from complete_trial{self.resumed_trial} of "
+                      f"{len(self.local_seeds)} lanes: trial {len(logs)} next")
+        else:
+            for e in range(num_explorations):
+                if verbose:
+                    print(f"[seed-farm] exploration {e} ({len(self.local_seeds)} seeds)")
+                self.collect(T_exploration, trial_index=e, exploration=True)
+        for trial in range(len(logs), num_trials):
             t0 = time.time()
             mll_last = self.fit_model(model_fit_options[min(trial, len(model_fit_options) - 1)])
             if verbose:
@@ -383,6 +525,10 @@ class SeedFarm:
                                      reinit_count=reinits, mll_last=mll_last,
                                      control_true=true_states, control_inputs=inputs,
                                      wall_clock_s=time.time() - t0))
+            if log_dirs is not None:
+                self.save_lanes(trial, logs, log_dirs, num_explorations)
+            if stop is not None and trial < num_trials - 1 and stop():
+                raise FarmStopped(trial)
         if self.mesh is not None:
             return self._gathered(logs)
         return FarmResult(seeds=np.asarray(list(self.seeds)), trial_logs=logs,

@@ -15,7 +15,12 @@ How the seeds run:
   device, ``FARMABLE``; ``--farm`` also takes ``cartpole_mujoco``, whose
   MuJoCo plant the farm steps seed by seed on the host): ``--farm-batch``
   seeds at a time as lanes of ``parallel.multiseed.SeedFarm``, in this
-  process.  Each batch's output is kept in every seed's log dir.
+  process.  Each batch's output is kept in every seed's log dir, and each
+  lane's state after every trial in ``<log dir>/complete_trial<i>``
+  (``SeedFarm.save_lanes``): under ``--resume`` an unfinished batch goes on
+  from the newest trial all its lanes completed, with the same seeds; a
+  sequential ``--resume`` (``--no-farm``) exits at once on a seed whose
+  newest checkpoint is a lane's.
 - **Subprocess seeds** (``--jobs N``): each seed runs ``python -m
   mcpilco_tpu_torch.scripts.train_<scenario>`` with ``--seed``,
   ``--log-dir``, the scenario's flags, ``--smoke``, ``--trials``,
@@ -41,8 +46,8 @@ Every seed's output goes to ``<log dir>/stdout.log``, its log dir being
 ``results_tmp/torch/repeat_<scenario>[_<tag>].json``, has the keys of the
 JAX driver's (and ``smoke`` and ``trials``, which say whether the sweep
 was cut down) and is rewritten after every seed or batch, so ``--resume``
-skips the seeds already done (a resumed sequential seed continues from its
-newest completed trial).
+skips the seeds already done (a resumed sequential seed or farm batch
+continues from its newest completed trial).
 
 A seed that died of the machine, not of the program (``INFRA_MARKERS``: no
 CUDA device, a CUDA driver that failed to initialize, a busy or
@@ -55,7 +60,8 @@ else its output says.
 
 Exit codes: 0 done; 86 (``STOP_EXIT_CODE``) stopped by the file
 ``results_tmp/torch/repeat_<scenario>[_<tag>].STOP`` at a seed or batch
-boundary (the file is consumed; ``--resume`` goes on); 87
+boundary, or at a trial boundary inside a farm batch (the file is consumed;
+``--resume`` goes on); 87
 (``WATCHDOG_EXIT_CODE``) a stall of ``--stall-secs``: in process, neither
 seed output nor an optimizer iteration, host read or fit epoch for that
 long (a healthy optimization prints nothing for minutes, but its
@@ -88,10 +94,11 @@ import traceback
 
 import torch
 
+from ..control.mc_pilco import check_resume, complete_trials
 from ..control.trainer import graph_counts
 from ..models.gp import fit_counts
 from ..ops import fused_predict as fp
-from ..parallel.multiseed import SeedFarm
+from ..parallel.multiseed import FarmStopped, SeedFarm
 from ..scenarios import cartpole, cartpole_mujoco, cartpole_pms, furuta, ur5
 from . import (train_cartpole, train_cartpole_mujoco, train_cartpole_pms, train_furuta,
                train_ur5)
@@ -183,6 +190,14 @@ def _save_seed_log(log_dir: str, text: str) -> None:
     os.makedirs(log_dir, exist_ok=True)
     with open(os.path.join(log_dir, "stdout.log"), "w") as f:
         f.write(text)
+
+
+def _read_seed_log(log_dir: str) -> str:
+    path = os.path.join(log_dir, "stdout.log")
+    if not os.path.isfile(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def _seed_argv(args, seed: int, extra: list) -> list:
@@ -424,9 +439,12 @@ def run_sequential(args, seeds, extra, results, costs, infra) -> int:
     return STOP_EXIT_CODE if stopped else 0
 
 
-def _farm_batch(args, scen, batch, extra, tick, results, costs) -> None:
-    """One batch of seeds through ``SeedFarm.run``, each scored on its final
-    trial."""
+def _farm_batch(args, scen, batch, extra, tick, results, costs, watch) -> None:
+    """One batch of seeds through ``SeedFarm.run``, its lanes checkpointed
+    in the seeds' log dirs after every trial, resumed from them under
+    ``--resume`` (``watch["resumed"]``: the trial it went on after), the
+    STOP file looked for at each trial boundary; each seed scored on its
+    final trial.  Raises ``FarmStopped`` at a STOP."""
     cfg, _ = seed_config(args, batch[0], extra)
     agent, kwargs = scen.build(cfg, args.device)
     farm = SeedFarm(agent, batch, policy_init_fn=lambda k: scen.policy_init(
@@ -435,10 +453,17 @@ def _farm_batch(args, scen, batch, extra, tick, results, costs) -> None:
     counts = (fp.launches, fp.gen_launches, fp.launched_lanes)
     before = [dict(c) for c in counts]
     t0 = time.time()
-    res = farm.run(**kwargs)
-    (k1, k2), (gen,), lanes = ([c[k] - b[k] for k in c] for c, b in zip(counts, before))
-    print(f"[repeat] batch {batch}: {time.time() - t0:.1f} s; K1 {k1} / K2 {k2} / k1_gen {gen} "
-          f"launches, lanes {lanes[0]} / {lanes[1]}", flush=True)
+    try:
+        res = farm.run(**kwargs, log_dirs=watch["log_dirs"], resume=args.resume,
+                       stop=lambda: _check_stop(args))
+    finally:
+        watch["resumed"] = farm.resumed_trial
+        (k1, k2), (gen,), lanes = ([c[k] - b[k] for k in c] for c, b in zip(counts, before))
+        print(f"[repeat] batch {batch}: {time.time() - t0:.1f} s"
+              + ("" if farm.resumed_trial is None
+                 else f" (resumed after trial {farm.resumed_trial})")
+              + f"; K1 {k1} / K2 {k2} / k1_gen {gen} launches, lanes {lanes[0]} / {lanes[1]}",
+              flush=True)
     for i, s in enumerate(batch):
         # a per-trial cost schedule scores the final trial with its own row
         stage = agent.cost.stage_costs(torch.as_tensor(res.final_true[i][:, None, :]),
@@ -451,8 +476,10 @@ def _farm_batch(args, scen, batch, extra, tick, results, costs) -> None:
 
 def run_farm(args, seeds, extra, results, costs) -> int:
     """``--farm-batch`` seeds at a time as lanes of one ``SeedFarm``, the
-    STOP file looked for before every batch, the farm watchdog on its
-    ``progress_cb``.  Returns 0, or ``STOP_EXIT_CODE``."""
+    STOP file looked for before every batch and at every trial boundary in
+    it, the farm watchdog on its ``progress_cb``.  A resumed batch's output
+    goes after the output its seeds' logs held.  Returns 0, or
+    ``STOP_EXIT_CODE``."""
     scen = SCENARIOS[args.scenario][0]
     watch = {"t": time.time(), "ticks": 0, "batch": None, "log_dirs": [], "buf": io.StringIO()}
     stop = _start_farm_watchdog(args.stall_secs, watch) if args.stall_secs else None
@@ -466,14 +493,21 @@ def run_farm(args, seeds, extra, results, costs) -> int:
                 return STOP_EXIT_CODE
             batch = seeds[lo: lo + args.farm_batch]
             buf = io.StringIO()
-            watch.update(batch=batch, t=time.time(), buf=buf, log_dirs=[
+            watch.update(batch=batch, t=time.time(), buf=buf, resumed=None, log_dirs=[
                 seed_log_dir(args.scenario, s, args.out_tag) for s in batch])
+            before = [_read_seed_log(d) for d in watch["log_dirs"]]
             try:
                 with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
-                    _farm_batch(args, scen, batch, extra, tick, results, costs)
+                    _farm_batch(args, scen, batch, extra, tick, results, costs, watch)
+            except FarmStopped as e:
+                print(f"[repeat] STOP after trial {e.trial} of batch {batch}: its lanes' "
+                      "checkpoints are written (resume with --resume)", flush=True)
+                return STOP_EXIT_CODE
             finally:  # a batch that raised keeps its output too
-                for log_dir in watch["log_dirs"]:
-                    _save_seed_log(log_dir, buf.getvalue())
+                for log_dir, prev in zip(watch["log_dirs"], before):
+                    _save_seed_log(log_dir, buf.getvalue() if watch["resumed"] is None else
+                                   f"{prev}\n==== resumed after trial {watch['resumed']} "
+                                   f"====\n{buf.getvalue()}")
             write_summary(args, results, costs, set(), complete=False)
     finally:
         if stop is not None:
@@ -546,6 +580,19 @@ def supervise(args, argv: list) -> int:
     print(f"[repeat-supervisor] giving up after {args.supervise + 1} launches (rc={rc})",
           flush=True)
     return rc
+
+
+def _refuse_farm_lanes(args, seeds) -> None:
+    """Exit before any seed starts when a seed's newest ``complete_trial``
+    is a farm lane's: only its batch continues it (``check_resume``), and
+    each seed would otherwise fail alone and be recorded as a failure."""
+    for s in seeds:
+        found = complete_trials(seed_log_dir(args.scenario, s, args.out_tag))
+        if found:
+            try:
+                check_resume(found[max(found)], None)
+            except RuntimeError as e:
+                raise SystemExit(f"[repeat] --no-farm --resume: {e}") from None
 
 
 def summary_path(args) -> str:
@@ -635,7 +682,8 @@ def parser() -> argparse.ArgumentParser:
                    help="suffix of the summary file name, so that A/B arms stay apart")
     p.add_argument("--resume", action="store_true",
                    help="skip the seeds of this scenario/tag's summary (its infra seeds run "
-                        "again); a sequential seed continues from its newest completed trial")
+                        "again); a sequential seed or farm batch continues from its newest "
+                        "completed trial")
     p.add_argument("--stall-secs", type=int, default=900,
                    help=f"exit {WATCHDOG_EXIT_CODE} when the sweep stalls this long: in process "
                         "no seed output, optimizer iteration or fit epoch, in the farm no "
@@ -684,6 +732,8 @@ def main(argv=None) -> int:
         seeds = list(range(args.first_seed, args.first_seed + args.num_seeds))
     results, costs = load_resume(args) if args.resume else ({}, {})
     seeds = [s for s in seeds if s not in results]
+    if args.resume and not args.farm:
+        _refuse_farm_lanes(args, seeds)
     if args.resume and not seeds:
         print("[repeat] resume: nothing left to run")
     infra = set()

@@ -283,7 +283,8 @@ def test_outcome_rule_on_the_committed_flagship_sweep():
 
 
 @pytest.mark.parametrize("scenario,p", [
-    ("cartpole_pms", 0.00038), ("cartpole", 0.46), ("cartpole_multi_init", 0.25)])
+    ("cartpole_pms", 0.00038), ("cartpole", 0.46), ("cartpole_multi_init", 0.25),
+    ("furuta", 0.52)])
 def test_outcome_rows_carry_the_rank_test_of_the_successes_costs(scenario, p):
     """The Mann-Whitney p of the committed sweeps' successes' costs against
     the JAX records' (two-sided), printed beside Fisher's p as evidence
@@ -303,8 +304,9 @@ def test_outcome_rows_carry_the_rank_test_of_the_successes_costs(scenario, p):
 
 
 def test_an_incomplete_sweep_is_not_decided(tmp_path, capsys):
-    """A summary that says ``"complete": false`` (the committed Furuta
-    sweep, cut by the chip time) gets a row, but no verdict."""
+    """A summary that says ``"complete": false`` (a sweep cut by the chip
+    time) gets a row, but no verdict; the committed Furuta sweep, complete
+    since its farm batch resumed from its lanes' checkpoints, gets its verdict."""
     from mcpilco_tpu_torch.scripts import outcome_parity
 
     _summary(tmp_path / "repeat_furuta.json", "furuta", {2: True, 3: False}, {2: 36.0, 3: 90.0},
@@ -312,10 +314,14 @@ def test_an_incomplete_sweep_is_not_decided(tmp_path, capsys):
     (row,) = outcome_parity.main(["--port", str(tmp_path), "--json"])
     assert row["complete"] is False and row["match"] is None
     assert (row["port"]["seeds"], row["jax"]["seeds"]) == (2, 9)
+    capsys.readouterr()
+    outcome_parity.main(["--port", str(tmp_path)])
+    (line,) = [l for l in capsys.readouterr().out.splitlines() if l.startswith("| furuta |")]
+    assert line.startswith("| furuta | 1/2 (sweep incomplete) |") and "| not decided |" in line
     (row,) = [r for r in outcome_parity.main(["--json"]) if r["scenario"] == "furuta"]
-    assert row["complete"] is False and row["match"] is None
-    outcome_parity.main([])
-    assert "| furuta | 0/0 (sweep incomplete) |" in capsys.readouterr().out
+    assert row["complete"] is True and (row["port"]["successes"], row["port"]["seeds"]) == (3, 9)
+    # the rate matches (Fisher p 0.153), the successes' median does not (C.4)
+    assert row["rate_ok"] and not row["median_in_jax_iqr"] and row["match"] is False
 
 
 @pytest.mark.parametrize("wins,cost,p_ok,median_ok", [
