@@ -21,10 +21,10 @@ flagship, against the uncaptured body (``graph=False``).
    calls give bitwise-equal outputs; time kernel against plain version at
    the flagship ('se+p2', M=384), 'se' M=384 and 4PMS ('se', M=448) shapes
    at P=400, as back-to-back CUDA-event times (host-bound) and as device
-   time (torch.profiler kernel records); time the step's own predict,
-   ``MultiGP._predict_plain`` against ``MultiGP._predict_fused``, forward
-   and forward + x* backward, the same two ways; print the blocks per
-   launch at P=400;
+   time (torch.profiler kernel records); with ``--full-profile`` time the
+   step's own predict, ``MultiGP._predict_plain`` against
+   ``MultiGP._predict_fused``, forward and forward + x* backward, the same
+   two ways; print the blocks per launch at P=400;
 3. the flagship policy-optimization step: 6 exploration trials (N~360),
    a 1501-epoch GP fit with the SOD posterior, 10 optimizer steps, then
    the learning-curve check: 10 steps from one key through the kernels and
@@ -124,9 +124,9 @@ flagship, against the uncaptured body (``graph=False``).
     4PMS over 4 seeds (P=400, horizon 90, exact 'se' GP, BPTT clip 0.2,
     300-epoch fits, 1 trial of 3 steps), K1/K2 with 4 lanes, the device
     offline estimator against the host path on the farm's exploration
-    trials, one seed's step profiled beside that seed as a lane axis of
-    size 1 (equal device events; with ``--full-profile`` the farm's step
-    beside them), one seed's 3-step curve
+    trials, (with ``--full-profile``) one seed's step profiled beside that
+    seed as a lane axis of size 1 (equal device events) and beside the
+    farm's step, one seed's 3-step curve
     farmed against alone (within 5e-3 relative); (b) Furuta's shipped
     semiparametric model over 4 seeds (1 trial of 3 steps, no kernel
     launch), its curve (with ``--full-profile`` its step profile beside one
@@ -143,9 +143,9 @@ flagship, against the uncaptured body (``graph=False``).
     with remat of phase 13, each fitted there, or here with 500 epochs when
     its phase did not run), the graphed optimizer step at its default
     iterations per host read against one read per iteration (``chunk=1``),
-    and on the flagship against the uncaptured body too; the flagship's
-    chunked and chunk=1 steps (with ``--full-profile`` every mode of every
-    path) profiled: host ms/step in turns, device busy, the device's idle
+    and on the flagship against the uncaptured body too; with
+    ``--full-profile`` every mode of every path
+    profiled: host ms/step in turns, device busy, the device's idle
     time inside one replay, device events and host CUDA API calls per step,
     idle share, K1/K2 per step; on every path capture + instantiate seconds
     and a learning curve in each mode
@@ -229,10 +229,11 @@ flagship and farm).
 
     python3 chip_smoke.py --full-profile
 
-also profiles the steps that the default run only times or runs: phase 9's
-Furuta SE step, phase 13's UR5 K1/K2 step, phase 14 (b)'s Furuta farm beside
-one seed, and every mode of every path of phase 15 (the default profiles
-the flagship's chunked and chunk=1 steps there); it adds ~4 minutes.
+also profiles the steps that the default run only times or runs: phase 2's
+step predicts, phase 7's farm, phase 9's Furuta SE step, phase 13's UR5
+K1/K2 step, phase 14 (a)'s 4PMS farm beside one seed and beside a lane axis
+of size 1, phase 14 (b)'s Furuta farm beside one seed, and every mode of
+every path of phase 15; it adds ~5 minutes.
 
     python3 chip_smoke.py --kernel-ab PATH
 
@@ -326,8 +327,7 @@ WIDE_EDGES = ((True, 2, 37, 37, 10), (False, 3, 1, 100, 17), (True, 2, 400, 1024
 UR5_STEPS = 3
 UR5_EPOCHS = 1001  # of the config's 2001
 # set by ``--full-profile``: profile the steps that the default run only
-# times or runs (phase 9's Furuta SE step, phase 13's UR5 K1/K2 step, phase
-# 14 (b)'s Furuta farm, every mode of every path of phase 15)
+# times or runs (the module docstring lists them)
 FULL_PROFILE = False
 
 
@@ -1333,7 +1333,7 @@ def legacy_variance_check(agent, farm, fp, dev):
         for legacy in (False, True):
             gp_mod.use_legacy_variance_op(legacy)
             try:
-                post = farm._build_posterior(data)
+                post, _ = farm._build_posterior(data)
                 fp.reset_launches()
                 mean, var = gp.predict(farm.gp_params, post, xs)
                 torch.cuda.synchronize()
@@ -1408,9 +1408,9 @@ def farm_scenarios_phase(fp, dev):
     cut.  (a) 4PMS over ``FARM_SEEDS`` seeds (P=400, horizon 90, exact 'se'
     GP, BPTT clip 0.2, 300-epoch fits, 1 trial of 3 steps): K1/K2 with one
     lane per seed, the device estimator against the host path, (e) the
-    legacy variance operator on the farm's posteriors, the step profile
-    beside one seed's and beside a lane axis of size 1, one seed's curve
-    farmed against alone within 5e-3.  (b) Furuta, the shipped
+    legacy variance operator on the farm's posteriors, with ``FULL_PROFILE``
+    the step profile beside one seed's and beside a lane axis of size 1, one
+    seed's curve farmed against alone within 5e-3.  (b) Furuta, the shipped
     semiparametric model (plain predict, delta cap 3), 4 seeds, 1 trial of
     3 steps: no launch, the step profile, farmed against alone.  (c) the
     host-plant path.  (d) ``repeat --scenario cartpole_pms --farm``.
@@ -1442,9 +1442,10 @@ def farm_scenarios_phase(fp, dev):
     laps.append(("estimator", time.perf_counter()))
     legacy_variance_check(agent, farm, fp, dev)
     laps.append(("legacy variance", time.perf_counter()))
-    # the farm's own step profiled only with --full-profile (three profiled
-    # steps took 49.5 s of (a)'s 82 s on the H100); the lane-axis check stays
-    farm_step_profile(agent, farm, host_steps=2, window=1, lane_one=True, whole=FULL_PROFILE)
+    # the step profiles and the lane-axis check that reads them run only with
+    # --full-profile (two profiled steps took 36.8 s of (a) on the H100)
+    if FULL_PROFILE:
+        farm_step_profile(agent, farm, host_steps=2, window=1, lane_one=True)
     laps.append(("step profiles", time.perf_counter()))
     # the sensor chain has gain 1/dt = 30: the CPU test's tolerance
     farmed_against_alone(cartpole_pms, cfg, farm, res, dev, 3, 5e-3)
@@ -2056,9 +2057,6 @@ GRAPH_LABELS = {"flagship": "flagship, P=400 (phase 3)", "4pms": "4PMS, M=448 (p
                 "farm": f"flagship farm, S={FARM_SEEDS} (phase 7)",
                 "furuta": "Furuta semiparametric, plain predict (phase 9)",
                 "ur5": "UR5 Sum(SE, MPK1), remat (phase 13)"}
-# phase 15's profiled modes per path; the other paths and modes run their
-# learning curves only (``--full-profile``: every mode of every path)
-GRAPH_PROFILED = {"flagship": ["chunked", "chunk=1"]}
 # phase 15's modes: (graph, chunk); "chunked" is what every other phase runs
 CHUNK_MODES = {"chunked": (True, None), "chunk=1": (True, 1), "uncaptured": (False, None)}
 
@@ -2273,8 +2271,8 @@ def exit_waste(step, curve_steps=10):
 
 def graph_phase(fp, dev):
     """Phase 15: every path of ``GRAPH_LABELS`` chunked against chunk=1
-    (``graph_ab``; the flagship against uncaptured too; the modes of
-    ``GRAPH_PROFILED`` profiled, with ``FULL_PROFILE`` all), the flagship made
+    (``graph_ab``; the flagship against uncaptured too; with
+    ``FULL_PROFILE`` every mode profiled), the flagship made
     to exit mid-chunk (``exit_waste``), then the flagship's reserved memory
     over three graphed calls (each frees its graph and pool: no growth).
     Prints the rows as one JSON line; returns them."""
@@ -2287,7 +2285,9 @@ def graph_phase(fp, dev):
             GRAPH_PATHS[name] = fit_graph_path(name, fp, dev)
         print(f"  ({GRAPH_LABELS[name]}):", flush=True)
         modes = ["chunked", "chunk=1"] + (["uncaptured"] if name == "flagship" else [])
-        profiled = modes if FULL_PROFILE else GRAPH_PROFILED.get(name, [])
+        # the default run checks the curves and counts; ``--full-profile``
+        # profiles every mode of every path
+        profiled = modes if FULL_PROFILE else []
         rows[name] = graph_ab(name, GRAPH_PATHS[name], fp, *GRAPH_DEPTH[name], modes, profiled)
         if name == "flagship":
             rows[name]["exit"] = exit_waste(GRAPH_PATHS[name])
@@ -2936,7 +2936,7 @@ def main():
                              "17, the 4PMS A/B's card half, runs only when listed)")
     parser.add_argument("--full-profile", action="store_true",
                         help="also profile the steps the default run only times or runs "
-                             "(phases 9, 13, 14 (b) and 15; ~+4 min)")
+                             "(phases 2, 7, 9, 13, 14 and 15; ~+5 min)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's chip check has no CPU path",
@@ -2986,7 +2986,8 @@ def main():
     if 2 in wanted:
         t0 = time.perf_counter()
         rec = check_kernels(fp, dev)
-        time_predicts(dev)
+        if FULL_PROFILE:
+            time_predicts(dev)
         phase("2 kernels against their plain versions", t0)
 
     if 3 in wanted:

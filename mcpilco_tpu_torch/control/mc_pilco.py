@@ -141,8 +141,7 @@ def check_resume(path: str, scenario: Optional[dict],
                  farm_seeds: Optional[List[int]] = None) -> None:
     """Refuse to resume from the checkpoint at ``path`` unless the same kind
     of run wrote it: a seed trained alone (``farm_seeds`` None) or the farm
-    batch ``farm_seeds``.  A seed's bits depend on the batch it shares, and a
-    farm lane keeps no raw trials, which a sequential trial reads.  Refuse
+    batch ``farm_seeds``: a seed's bits depend on the batch it shares.  Refuse
     it too when it was written under another scenario config (``scenario``,
     as ``scenario_meta`` gives it): log dirs outlive sweeps, and resuming
     after a config change would replay stale state as a fresh sample.  The
@@ -424,8 +423,8 @@ class MCPilco:
                 if all(bool(torch.all(torch.isfinite(l))) for l in post):
                     if scale > 1.0:
                         print(f"[mc-pilco] posterior needed {scale:.0f}x jitter")
-                        if info is not None:
-                            info["jitter_scale"] = scale
+                    if info is not None:
+                        info["jitter_scale"] = scale
                     return post
             raise FloatingPointError(
                 "GP posterior non-finite even at 100x jitter escalation "

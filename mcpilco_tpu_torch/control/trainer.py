@@ -99,6 +99,9 @@ class OptResult(NamedTuple):
     # num_restarts > 1; every other field is the winner's
     restart_costs: Optional[np.ndarray] = None
     restart_winner: Optional[int] = None
+    # NaN rollouts the host re-sampled or gave up on (each halted read),
+    # counted in ``_Lanes.take``
+    nan_resamples: int = 0
 
 
 class Monitor(NamedTuple):
@@ -294,12 +297,13 @@ class _StatusReads:
 class _Lanes:
     """The host's view of the lanes: their keys and restart ids, and as of
     the last read their steps, whether done, their NaN re-samples at that
-    step and their re-inits."""
+    step, their re-inits and their halted reads in all (``nan``)."""
 
     def __init__(self, keys, rids):
         self.keys, self.rids = keys, rids
         L = len(keys)
         self.steps, self.done, self.retry, self.reinits = [0] * L, [False] * L, [0] * L, [0] * L
+        self.nan = [0] * L
 
     def key(self, i: int, step: int, retry: int):
         """Lane ``i``'s key at ``step``: the retry counter and the restart id
@@ -320,6 +324,7 @@ class _Lanes:
             r = 0 if s > self.steps[i] else self.retry[i]
             if status[2, i]:
                 halted.append(i)
+                self.nan[i] += 1
                 if r < max_nan_retries:
                     r += 1
                 else:
@@ -648,15 +653,16 @@ class PolicyOptimizer:
         """The result of the rank at restart coordinate ``src`` on every rank
         of its restart group (``res``: this rank's result of the same shapes)."""
         scalars = torch.tensor([res.steps_done, res.reinit_count, res.final_lr,
-                                res.final_p_dropout], dtype=torch.float64)
+                                res.final_p_dropout, res.nan_resamples], dtype=torch.float64)
         tensors = (res.policy_params, res.cost_history, res.std_history, res.states, res.inputs,
                    scalars)
         params, cost, std, states, inputs, scalars = mesh_mod.broadcast(
             self.mesh, tensors, mesh_mod.RESTART_AXIS, src)
-        steps, reinits, lr, p_drop = scalars.tolist()
+        steps, reinits, lr, p_drop, nan = scalars.tolist()
         return OptResult(policy_params=params, cost_history=cost, std_history=std,
                          steps_done=int(steps), states=states, inputs=inputs,
-                         reinit_count=int(reinits), final_lr=lr, final_p_dropout=p_drop)
+                         reinit_count=int(reinits), final_lr=lr, final_p_dropout=p_drop,
+                         nan_resamples=int(nan))
 
     def optimize_lanes(self, keys: List, policy_params: dict, gp_params, posterior,
                        num_opt_steps, lr0, p_dropout0, trial_index=0, rids=None,
@@ -803,7 +809,7 @@ class PolicyOptimizer:
             for name in ("states", "inputs"):
                 setattr(buf, name, mesh_mod.all_gather(self.mesh, getattr(buf, name),
                                                        mesh_mod.PARTICLE_AXIS, dim=2))
-        return self._lane_results(buf, lanes.steps, lanes.reinits)
+        return self._lane_results(buf, lanes)
 
     def _agree(self, budget: int, iterations: int) -> int:
         """Under a particle mesh, at the start of a call and after each read:
@@ -918,11 +924,11 @@ class PolicyOptimizer:
                 for t in state.values():
                     t.index_fill_(0, ix, 0.0)
 
-    def _lane_results(self, buf: _Static, steps, reinits):
+    def _lane_results(self, buf: _Static, lanes: _Lanes):
         floats = dict(zip(_FLOATS, buf.floats.cpu().numpy()))
         hist = buf.hist.cpu()
         results, metric = [], []
-        for i, steps_done in enumerate(steps):
+        for i, steps_done in enumerate(lanes.steps):
             best_cost = float(floats["best_cost"][i])
             final = buf.best if self.keep_best and np.isfinite(best_cost) else buf.leaves
             results.append(OptResult(
@@ -932,9 +938,10 @@ class PolicyOptimizer:
                 steps_done=steps_done,
                 states=buf.states[:, i],
                 inputs=buf.inputs[:, i],
-                reinit_count=reinits[i],
+                reinit_count=lanes.reinits[i],
                 final_lr=float(floats["lr"][i]),
                 final_p_dropout=float(floats["p_drop"][i]),
+                nan_resamples=lanes.nan[i],
             ))
             metric.append(best_cost if self.keep_best else float(floats["cost_prev"][i]))
         return results, np.asarray(metric, dtype=np.float64)

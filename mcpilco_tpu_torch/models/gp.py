@@ -224,7 +224,8 @@ class MultiGP:
         m = torch.amax(torch.abs(data.y) * data.mask[..., None, :], dim=-1)
         return torch.clamp(m, min=torch.finfo(data.x.dtype).tiny)
 
-    def fit(self, params: GPParams, data: GPData, num_epochs: int, learning_rate: float = 0.01):
+    def fit(self, params: GPParams, data: GPData, num_epochs: int, learning_rate: float = 0.01,
+            stats: Optional[dict] = None):
         """Full-batch Adam on the MLL of all heads (optax.adam semantics),
         frozen leaves held fixed, with the backtracking NaN guard of
         ``mcpilco_tpu/models/gp.py:288-333``.
@@ -237,7 +238,9 @@ class MultiGP:
         Adam step and the guard acts per lane, as ``jax.vmap(fit)`` does: a
         non-finite epoch of one seed reverts that seed alone.
 
-        Returns (params, loss_history [*L, num_epochs]).
+        Returns (params, loss_history [*L, num_epochs]); ``stats``, if given,
+        receives ``"reverted"``: each lane's count of reverted epochs [*L], a
+        device tensor (reading it syncs).
         """
         norm = self.output_norms(data)
         lanes = data.x.shape[:-2]
@@ -251,6 +254,7 @@ class MultiGP:
         good_p, good_s = p, s
         lr_scale = torch.ones(lanes, **opts)
         last_loss = torch.full(lanes, math.inf, **opts)
+        reverted = torch.zeros(lanes, dtype=torch.int64, device=data.x.device)
         recover = 2.0 ** (1.0 / 50.0)
         b1, b2, eps = 0.9, 0.999, 1e-8
         history = []
@@ -291,7 +295,10 @@ class MultiGP:
                 lr_scale = torch.where(finite, torch.clamp(lr_scale * recover, max=1.0),
                                        lr_scale * 0.5)
                 last_loss = torch.where(finite, loss, last_loss)
+                reverted += ~finite
                 history.append(last_loss)
+        if stats is not None:
+            stats["reverted"] = reverted
         return _unflatten(params, p), torch.stack(history, dim=-1)
 
     def posterior(self, params: GPParams, x_tr, mask, y) -> Posterior:
@@ -344,7 +351,10 @@ class MultiGP:
     def _predict_plain(self, params: GPParams, post: Posterior, x_star):
         kp = params.kernel
         k_star = self._cross_gram(kp, x_star, post.x_tr) * post.mask[..., None, :]  # [*L, G, P, M]
-        mean = self._mean(kp, x_star) + torch.einsum("...gpm,...gm->...gp", k_star, post.alpha)
+        # a matmul, not an einsum: einsum contracts a lane axis of size 1
+        # in another order than the unbatched call, so a farm of one seed
+        # would not be bitwise the seed trained alone
+        mean = self._mean(kp, x_star) + torch.matmul(k_star, post.alpha[..., None])[..., 0]
         return self._epilogue(kp, post, x_star, mean, _quad(k_star, post.var_factor))
 
     def _cross_gram(self, kp, x_star, x_tr):
@@ -574,18 +584,20 @@ def _unflatten(structure, leaves):
     return tree_map(lambda _: next(it), structure)
 
 
+def finite_lanes(post):
+    """[L] bool: the lanes of ``post`` (lanes in front of every leaf) whose
+    every leaf is finite."""
+    return torch.stack([torch.isfinite(t).flatten(1).all(-1) for t in post]).all(0)
+
+
 def first_finite(posteriors):
     """Per lane, the first posterior of ``posteriors`` whose every leaf is
     finite, else the last one (the escalation of
     ``mcpilco_tpu/parallel/multiseed.py:318-355``, without a host sync).
     The posteriors have lanes [L] in front of every leaf and equal shapes."""
-
-    def finite(post):
-        return torch.stack([torch.isfinite(t).flatten(1).all(-1) for t in post]).all(0)  # [L]
-
     out = posteriors[-1]
     for post in reversed(posteriors[:-1]):
-        ok = finite(post)
+        ok = finite_lanes(post)
         out = Posterior(*(torch.where(ok.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
                           for a, b in zip(post, out)))
     return out

@@ -67,9 +67,9 @@ import torch
 from ..control.mc_pilco import (MCPilco, ModelFitOptions, PolicyOptOptions, TrialLog,
                                  check_resume, checkpoint_state, complete_trials,
                                  scenario_meta)
-from ..envs.plants import ODEPlant, offline_velocity_estimation_lanes
+from ..envs.plants import ODEPlant, TrialData, offline_velocity_estimation_lanes
 from ..models import sod as sod_mod
-from ..models.gp import GPData, first_finite, tree_map
+from ..models.gp import GPData, finite_lanes, first_finite, tree_map
 from ..ops import linalg
 from ..utils import checkpoint as ckpt
 from ..utils import prng
@@ -87,12 +87,15 @@ class FarmTrialLog(NamedTuple):
     mll_last: np.ndarray  # [S]
     control_true: np.ndarray  # [S, N+1, ds] the executed control trial
     control_inputs: np.ndarray  # [S, N+1, du]
+    nan_resamples: np.ndarray  # [S] NaN rollouts re-sampled or given up on (host count)
+    reverted_epochs: np.ndarray  # [S] the fit's epochs the NaN guard reverted
+    jitter_scale: np.ndarray  # [S] the jitter scale of the posterior kept
     wall_clock_s: float
 
 
 # a FarmTrialLog's per-seed rows, as a lane checkpoint keeps them
 _LANE_FIELDS = ("cost_history", "steps_done", "reinit_count", "mll_last", "control_true",
-                "control_inputs")
+                "control_inputs", "nan_resamples", "reverted_epochs", "jitter_scale")
 
 
 class FarmResult(NamedTuple):
@@ -206,6 +209,11 @@ class SeedFarm:
         self.gp_params = None
         self.posterior = None
         self.num_collections = 0
+        # every collection's trial, lanes in front ([S, N, ...] per field)
+        self.trials: List[TrialData] = []
+        # the last fit's and optimization's per-seed records (FarmTrialLog's)
+        self.fit_info: dict = {}
+        self.opt_info: dict = {}
         S = len(self.local_seeds)
         self.gp_x = np.zeros((S, 0, a.model.gp_input_dim), np.float32)
         self.gp_y = np.zeros((S, a.gp.num_heads, 0), np.float32)
@@ -241,13 +249,14 @@ class SeedFarm:
         keys = [prng.fold(prng.stream(k, prng.STREAM_SYSTEM), trial_index) for k in self.keys]
         trial = a.plant.rollout_lanes(keys, x0, pol, params, T, a.dt, device=a.device)
         if not a.offline_filtering:
-            return self._add(trial.measured, trial.inputs, trial.true)
+            return self._add(trial)
         est, inputs = offline_velocity_estimation_lanes(
             torch.as_tensor(trial.noisy, device=a.device),
             torch.as_tensor(trial.inputs, device=a.device), a.dt, a.model.pos_indices,
             a.model.vel_indices, filt_cutoff=a.offline_filter_cutoff,
             method=a.offline_filter_method)
-        return self._add(est.cpu().numpy(), inputs.cpu().numpy(), trial.true[:, 1:-1])
+        return self._add(TrialData(measured=est.cpu().numpy(), inputs=inputs.cpu().numpy(),
+                                   true=trial.true[:, 1:-1], noisy=trial.noisy[:, 1:-1]))
 
     def _collect_host(self, T: float, trial_index: int, exploration: bool) -> tuple:
         """A host plant's trials (MuJoCo), seed by seed through its
@@ -260,21 +269,22 @@ class SeedFarm:
                                   {n: v[i] for n, v in params.items()}, T, a.dt,
                                   device=a.device)
                   for i, k in enumerate(self.keys)]
-        return self._add(*(np.stack([getattr(t, f) for t in trials])
-                           for f in ("measured", "inputs", "true")))
+        return self._add(TrialData(*(np.stack([getattr(t, f) for t in trials])
+                                     for f in TrialData._fields)))
 
-    def _add(self, measured, inputs, true) -> tuple:
-        """Every seed's training pairs of one trial into its dataset:
-        ``measured`` [S, N, ds] and ``inputs`` [S, N, du] on the host."""
+    def _add(self, trial: TrialData) -> tuple:
+        """Every seed's trial (host arrays, [S, N, ...] per field) kept, and
+        its training pairs added to the seed's dataset."""
         a = self.agent
         pairs = [a.model.training_pairs(torch.as_tensor(m, dtype=torch.float32),
                                         torch.as_tensor(u, dtype=torch.float32))
-                 for m, u in zip(measured, inputs)]
+                 for m, u in zip(trial.measured, trial.inputs)]
         self.gp_x = np.concatenate([self.gp_x, np.stack([x.numpy() for x, _ in pairs])], axis=1)
         self.gp_y = np.concatenate([self.gp_y, np.stack([y.numpy() for _, y in pairs])], axis=2)
+        self.trials.append(TrialData(*(np.asarray(v, np.float32) for v in trial)))
         self.num_collections += 1
         self._tick()
-        return true, inputs
+        return trial.true, trial.inputs
 
     def _padded_data(self) -> GPData:
         a = self.agent
@@ -291,15 +301,19 @@ class SeedFarm:
 
     def fit_model(self, opts: ModelFitOptions) -> np.ndarray:
         """Re-init and train every seed's GP heads in one batched fit, then
-        build the posteriors.  Returns each seed's final MLL [S]."""
+        build the posteriors.  Returns each seed's final MLL [S];
+        ``fit_info`` holds each seed's reverted epochs and jitter scale."""
         a = self.agent
         S = len(self.local_seeds)
         p0 = a._init_gp_params()
         params = tree_map(lambda t: t.expand(S, *t.shape).clone(), p0)
         data = self._padded_data()
+        stats = {}
         self.gp_params, losses = a.gp.fit(params, data, num_epochs=opts.num_epochs,
-                                          learning_rate=opts.learning_rate)
-        self.posterior = self._build_posterior(data)
+                                          learning_rate=opts.learning_rate, stats=stats)
+        self.posterior, scale = self._build_posterior(data)
+        self.fit_info = {"reverted_epochs": stats["reverted"].cpu().numpy(),
+                         "jitter_scale": scale}
         out = losses[:, -1].cpu().numpy()
         self._tick()
         return out
@@ -309,19 +323,23 @@ class SeedFarm:
         """Every seed's posterior at 1x, 10x and 100x jitter, and per seed the
         first finite one (``multiseed.py:318-355``): an fp32 Cholesky can tip
         over on one seed's dataset, and a NaN posterior NaN-storms its whole
-        training."""
+        training.  Returns (the posteriors, each seed's scale [S]: the first
+        finite one's, else the last)."""
         a = self.agent
         variants = [a.gp.scaled(s) for s in JITTER_SCALES]
         if a.sod is None:
-            return first_finite([gv.fit_posterior(self.gp_params, data) for gv in variants])
-        parts = [self._sod_subsets(gv, data) for gv in variants]
-        m = max(x.shape[1] for x, _, _ in parts)
-        posts = []
-        for gv, (x_tr, mask, y_tr) in zip(variants, parts):
-            padded = (_pad_to(x_tr, m, 1), _pad_to(mask, m, 2), _pad_to(y_tr, m, 2))
-            posts.append(gv.posterior(self.gp_params,
-                                      *(torch.as_tensor(v, device=a.device) for v in padded)))
-        return first_finite(posts)
+            posts = [gv.fit_posterior(self.gp_params, data) for gv in variants]
+        else:
+            parts = [self._sod_subsets(gv, data) for gv in variants]
+            m = max(x.shape[1] for x, _, _ in parts)
+            posts = []
+            for gv, (x_tr, mask, y_tr) in zip(variants, parts):
+                padded = (_pad_to(x_tr, m, 1), _pad_to(mask, m, 2), _pad_to(y_tr, m, 2))
+                posts.append(gv.posterior(self.gp_params,
+                                          *(torch.as_tensor(v, device=a.device) for v in padded)))
+        ok = np.stack([finite_lanes(p).cpu().numpy() for p in posts[:-1]] + [
+            np.ones(len(self.local_seeds), bool)])
+        return first_finite(posts), np.asarray(JITTER_SCALES)[np.argmax(ok, axis=0)]
 
     def _sod_subsets(self, gp, data: GPData):
         """Per seed, the SOD selection compacted to the union of the heads'
@@ -355,18 +373,21 @@ class SeedFarm:
         schedule, restart r from ``policy.reinit`` with the seed's
         ``split(fold(key, STREAM_RESTARTS), R - 1)[r - 1]``; each seed keeps
         its own winner.  Returns (cost_history [S, max_opt_steps],
-        steps_done [S], reinit_count [S]).
+        steps_done [S], reinit_count [S]); ``opt_info`` holds each seed's
+        NaN re-samples over its restarts and its winner's last rollout.
         """
         a = self.agent
         R = max(int(a.optimizer.num_restarts), 1)
         keys = [prng.fold(prng.stream(k, prng.STREAM_ROLLOUT), trial_index) for k in self.keys]
         best, best_metric = None, None
+        nan = np.zeros(len(keys), np.int64)
         for r in range(R):
             params = self.policy_params
             if r:
                 params = a.policy.reinit(params, [
                     prng.split(prng.fold(k, prng.STREAM_RESTARTS), R - 1)[r - 1] for k in keys])
             results, metric = self._optimize_lane(opts, trial_index, keys, params, lane_id=r)
+            nan += [res.nan_resamples for res in results]
             if best is None:
                 best, best_metric = results, metric
                 continue
@@ -374,6 +395,9 @@ class SeedFarm:
                 if np.isfinite(m_new) and (not np.isfinite(m_old) or m_new < m_old):
                     best[i], best_metric[i] = results[i], m_new
         self.policy_params = _stack([res.policy_params for res in best])
+        self.opt_info = {"nan_resamples": nan,
+                         "states": [res.states for res in best],
+                         "inputs": [res.inputs for res in best]}
         return (np.stack([res.cost_history.numpy() for res in best]),
                 np.asarray([res.steps_done for res in best]),
                 np.asarray([res.reinit_count for res in best]))
@@ -400,25 +424,31 @@ class SeedFarm:
         anywhere leaves every lane a trial they all completed.
 
         What the next trial reads: the dataset (``gp_x`` / ``gp_y``), the
-        policy, ``num_collections`` and the trial logs.  The trees and meta
-        are ``checkpoint_state``'s, as ``MCPilco.save_checkpoint`` writes
-        them, so ``load_checkpoint`` restores a lane's dataset, GP and policy;
-        a lane keeps no raw trials (``trial_*`` are empty, std and particle
-        rollouts too), so ``farm_seeds`` in its meta makes ``auto_resume``
-        refuse it, and ``farm_log_<t>`` holds its ``FarmTrialLog`` rows as
-        they were.
+        policy, ``num_collections``, the trials and the trial logs.  The trees
+        and meta are ``checkpoint_state``'s, as ``MCPilco.save_checkpoint``
+        writes them, so ``load_checkpoint`` restores a lane's dataset, GP,
+        policy, trials and trial logs, and the newest trial log keeps the
+        last optimizer rollout's particles (what ``analyze_mujoco_failures``
+        reads; the older logs and every std history are empty);
+        ``farm_seeds`` in its meta makes ``auto_resume`` refuse it (a seed's
+        bits depend on its batch), and ``farm_log_<t>`` holds its
+        ``FarmTrialLog`` rows as they were.
         ``expl_params`` and every key are functions of the seed and the trial
         index, and ``fit_model`` re-initializes the GP, so a resume reads
         neither; the optimizer's ``_measured_rate`` only sizes its chunks,
         and no number depends on them."""
         a = self.agent
         empty = np.zeros(0, np.float32)
+        last = self.opt_info
         for i, (seed, log_dir) in enumerate(zip(self.local_seeds, log_dirs)):
             lane_logs = [TrialLog(cost_history=log.cost_history[i, : int(log.steps_done[i])],
                                   std_history=empty, steps_done=int(log.steps_done[i]),
                                   particles_states=empty, particles_inputs=empty,
                                   reinit_count=int(log.reinit_count[i]),
                                   wall_clock_s=float(log.wall_clock_s)) for log in logs]
+            lane_logs[-1] = dataclasses.replace(
+                lane_logs[-1], particles_states=last["states"][i].cpu().numpy(),
+                particles_inputs=last["inputs"][i].cpu().numpy())
             trees, meta = checkpoint_state(
                 seed=seed, policy_params=tree_map(lambda t: t[i], self.policy_params),
                 expl_params=tree_map(lambda t: t[i], self.expl_params),
@@ -426,7 +456,9 @@ class SeedFarm:
                 gp_params=tree_map(lambda t: t[i], self.gp_params),
                 num_collections=self.num_collections, num_exploration_trials=num_explorations,
                 dt=a.dt, stage=f"complete_trial{trial}",
-                scenario=_lane_scenario(a, seed, log_dir), trials=[], trial_logs=lane_logs)
+                scenario=_lane_scenario(a, seed, log_dir),
+                trials=[TrialData(*(v[i] for v in t)) for t in self.trials],
+                trial_logs=lane_logs)
             trees.update({f"farm_log_{t}": {f: getattr(log, f)[i] for f in _LANE_FIELDS}
                           for t, log in enumerate(logs)})
             meta.update(farm_seeds=[int(s) for s in self.seeds], farm_lane=i)
@@ -442,9 +474,9 @@ class SeedFarm:
 
     def restore_lanes(self, log_dirs: Sequence[str]) -> List[FarmTrialLog]:
         """The newest trial that every lane's checkpoint in ``log_dirs``
-        completed: the lanes' datasets, policies and ``num_collections``
-        restored, and the batch's trial logs so far returned ([] when some
-        lane has none).  Raises on a checkpoint written for another batch of
+        completed: the lanes' datasets, trials, policies and
+        ``num_collections`` restored, and the batch's trial logs so far
+        returned ([] when some lane has none).  Raises on a checkpoint written for another batch of
         seeds, by a seed trained alone or under another scenario config
         (``check_resume``)."""
         a = self.agent
@@ -469,6 +501,9 @@ class SeedFarm:
         self.gp_x = np.stack([np.asarray(trees["gp_x"], np.float32) for trees, _ in parts])
         self.gp_y = np.stack([np.asarray(trees["gp_y"], np.float32) for trees, _ in parts])
         self.num_collections = int(parts[0][1]["num_collections"])
+        self.trials = [TrialData(*(np.stack([np.asarray(meta[f"trial_{f}"][t], np.float32)
+                                             for _, meta in parts]) for f in TrialData._fields))
+                       for t in range(self.num_collections)]
         return [FarmTrialLog(
             **{f: np.stack([trees[f"farm_log_{t}"][f] for trees, _ in parts])
                for f in _LANE_FIELDS},
@@ -524,6 +559,9 @@ class SeedFarm:
             logs.append(FarmTrialLog(cost_history=cost_hist, steps_done=steps,
                                      reinit_count=reinits, mll_last=mll_last,
                                      control_true=true_states, control_inputs=inputs,
+                                     nan_resamples=self.opt_info["nan_resamples"],
+                                     reverted_epochs=self.fit_info["reverted_epochs"],
+                                     jitter_scale=self.fit_info["jitter_scale"],
                                      wall_clock_s=time.time() - t0))
             if log_dirs is not None:
                 self.save_lanes(trial, logs, log_dirs, num_explorations)

@@ -13,7 +13,10 @@ ways a seed fails:
 
 It also reports the final model's one-step prediction RMSE along the
 executed final trial (``analyze_pms_bias``'s method), so that the model's
-quality is measured, not guessed.
+quality is measured, not guessed, and for a rollout engine with a
+``delta_cap`` (Furuta) the share of in-model particle-steps at which the cap
+binds (``delta_cap_share``, read by ``utils/cap_probe`` on the in-model
+rollout that :func:`in_model_states` runs; None without a cap).
 
     python -m mcpilco_tpu_torch.scripts.analyze_mujoco_failures --scenario pms
     python -m mcpilco_tpu_torch.scripts.analyze_mujoco_failures --scenario furuta \\
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from ..control.rollout import RolloutNoise
+from ..utils.cap_probe import CapShares, delta_cap_binding
 
 
 def mujoco_upright_fraction(states):
@@ -138,10 +142,18 @@ def analyze_seed(scenario: str, seed: int, ckpt: str, device) -> dict:
     cost_hist = log.cost_history[: log.steps_done]
     in_model_cost = float(np.mean(cost_hist[-20:])) if len(cost_hist) else float("nan")
     p_states = np.asarray(log.particles_states)
-    if p_states.ndim != 3:
-        # a checkpoint without particle snapshots: the final policy's
-        # in-model rollout, rebuilt with fresh noise
-        p_states = in_model_states(agent)
+    cap_share = None
+    if p_states.ndim != 3 or agent.optimizer.engine.delta_cap is not None:
+        # the final policy's in-model rollout, rebuilt with fresh noise: the
+        # states of a checkpoint without particle snapshots, and the cap's
+        # binding share
+        shares = CapShares()
+        with delta_cap_binding(shares):
+            states = in_model_states(agent)
+        if p_states.ndim != 3:
+            p_states = states
+        if agent.optimizer.engine.delta_cap is not None:
+            cap_share = shares.share()
     in_model_frac = spec["upright"](p_states) if p_states.ndim == 3 else float("nan")
 
     # the one-step model error along the executed trial (true plant states)
@@ -157,7 +169,7 @@ def analyze_seed(scenario: str, seed: int, ckpt: str, device) -> dict:
     return dict(scenario=scenario, seed=seed, executed_cost=executed_cost,
                 executed_success=executed_ok, in_model_cost=in_model_cost,
                 in_model_upright_frac=in_model_frac, onestep_rmse=rmse, mean_abs_delta=scale,
-                mode=mode_of(executed_ok, in_model_frac))
+                delta_cap_share=cap_share, mode=mode_of(executed_ok, in_model_frac))
 
 
 def run_dirs(root: str, prefix: str, seeds=None):
@@ -199,7 +211,9 @@ def main(argv=None) -> list:
             f"success={r['executed_success']} | in-model cost {r['in_model_cost']:6.2f} "
             f"upright-frac {r['in_model_upright_frac']:.2f} | 1-step rmse ({h[0]}, {h[1]}) "
             f"{rmse[0]:.3f}/{rmse[1]:.3f} (|delta| scale {scale[0]:.2f}/{scale[1]:.2f}) "
-            f"-> {r['mode']}", flush=True)
+            + ("" if r["delta_cap_share"] is None
+               else f"cap binds {r['delta_cap_share']:.4f} ")
+            + f"-> {r['mode']}", flush=True)
 
     n_fail = sum(1 for r in rows if not r["executed_success"])
     n_opt = sum(1 for r in rows if r["mode"] == "optimization")

@@ -17,10 +17,15 @@
 # copies the seeds' log dirs (lane checkpoints, stdout.log) and the summary
 # to OUT/torch; copy those into results_tmp/torch/ before the next part.
 # REPEAT_FLAGS, if set, is added to both repeat commands (e.g. "--device cpu").
+# OUT_TAG, if set, is the sweep's --out-tag: its seeds' log dirs are
+# SCENARIO_OUT_TAG_<seed>, its summary repeat_SCENARIO_OUT_TAG.json and its STOP
+# file repeat_SCENARIO_OUT_TAG.STOP, so that another sweep's stay as they are.
 START=$(date +%s)
 OUT=$1; WATCH_T=$2; SCEN=$3; FIRST=$4; NUM=$5
 LAST=$(( FIRST + NUM - 1 ))
 DIR=results_tmp/torch
+RUN=$SCEN${OUT_TAG:+_$OUT_TAG}
+TAG_FLAG=${OUT_TAG:+--out-tag $OUT_TAG}
 mkdir -p "$OUT" "$DIR"
 date -u
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader | tee "$OUT/card.txt"
@@ -36,13 +41,13 @@ if [ "${SMOKE_FIRST:-0}" = 1 ]; then
   cp -r "$DIR/${SCEN}_1" "$DIR/${SCEN}_2" "$DIR/repeat_${SCEN}.json" "$OUT/smoke/" 2>/dev/null
   rm -rf "$DIR/${SCEN}_1" "$DIR/${SCEN}_2" "$DIR/repeat_${SCEN}.json"
 fi
-STOPF=$DIR/repeat_${SCEN}.STOP
+STOPF=$DIR/repeat_${RUN}.STOP
 WATCHER=
 if [ "$WATCH_T" -ge 0 ]; then
   ( while true; do
       n=0
       for s in $(seq "$FIRST" "$LAST"); do
-        [ -f "$DIR/${SCEN}_$s/complete_trial$WATCH_T/manifest.json" ] && n=$(( n + 1 ))
+        [ -f "$DIR/${RUN}_$s/complete_trial$WATCH_T/manifest.json" ] && n=$(( n + 1 ))
       done
       if [ "$n" = "$NUM" ]; then
         sleep "${STOP_DELAY:-60}"; touch "$STOPF"; echo "STOP dropped at $(date -u)"; break
@@ -55,14 +60,14 @@ LIMIT=$(( ${SWEEP_END:-3470} - ($(date +%s) - START) ))
 echo "sweep limit $LIMIT s"
 t0=$(date +%s)
 timeout -k 20 "$LIMIT" python -u -m mcpilco_tpu_torch.scripts.repeat --scenario "$SCEN" \
-    --first-seed "$FIRST" --num-seeds "$NUM" --farm-batch "$NUM" --resume $REPEAT_FLAGS \
+    --first-seed "$FIRST" --num-seeds "$NUM" --farm-batch "$NUM" --resume $TAG_FLAG $REPEAT_FLAGS \
     > "$OUT/sweep.log" 2>&1
 echo "sweep rc=$? after $(( $(date +%s) - t0 )) s" | tee "$OUT/rc.txt"
 [ -n "$WATCHER" ] && kill "$WATCHER" 2>/dev/null
 rm -f "$STOPF"
 mkdir -p "$OUT/torch"
-for s in $(seq "$FIRST" "$LAST"); do cp -r "$DIR/${SCEN}_$s" "$OUT/torch/" 2>/dev/null; done
-cp "$DIR/repeat_${SCEN}.json" "$OUT/torch/" 2>/dev/null
+for s in $(seq "$FIRST" "$LAST"); do cp -r "$DIR/${RUN}_$s" "$OUT/torch/" 2>/dev/null; done
+cp "$DIR/repeat_${RUN}.json" "$OUT/torch/" 2>/dev/null
 du -sh "$OUT"
 grep -v "^ " "$OUT/sweep.log" | tail -60
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader

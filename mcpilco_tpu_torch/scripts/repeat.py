@@ -439,12 +439,24 @@ def run_sequential(args, seeds, extra, results, costs, infra) -> int:
     return STOP_EXIT_CODE if stopped else 0
 
 
-def _farm_batch(args, scen, batch, extra, tick, results, costs, watch) -> None:
+def farm_trial_records(res, i: int) -> list:
+    """Lane ``i``'s record of each trial of a ``FarmResult``: the optimizer's
+    steps, re-inits and NaN re-samples, the fit's reverted epochs and the
+    posterior's jitter scale."""
+    return [{"trial": t, "steps": int(log.steps_done[i]), "reinits": int(log.reinit_count[i]),
+             "nan_resamples": int(log.nan_resamples[i]),
+             "reverted_epochs": int(log.reverted_epochs[i]),
+             "jitter_scale": float(log.jitter_scale[i])}
+            for t, log in enumerate(res.trial_logs)]
+
+
+def _farm_batch(args, scen, batch, extra, tick, results, costs, records, watch) -> None:
     """One batch of seeds through ``SeedFarm.run``, its lanes checkpointed
     in the seeds' log dirs after every trial, resumed from them under
     ``--resume`` (``watch["resumed"]``: the trial it went on after), the
     STOP file looked for at each trial boundary; each seed scored on its
-    final trial.  Raises ``FarmStopped`` at a STOP."""
+    final trial, its trials recorded (``farm_trial_records``).  Raises
+    ``FarmStopped`` at a STOP."""
     cfg, _ = seed_config(args, batch[0], extra)
     agent, kwargs = scen.build(cfg, args.device)
     farm = SeedFarm(agent, batch, policy_init_fn=lambda k: scen.policy_init(
@@ -471,10 +483,11 @@ def _farm_batch(args, scen, batch, extra, tick, results, costs, watch) -> None:
                                        len(res.trial_logs) - 1)
         results[s] = scen.swingup_success(res.final_true[i])
         costs[s] = round(float(torch.sum(stage)), 4)
+        records[s] = farm_trial_records(res, i)
         print(f"[repeat] seed {s}: success={results[s]} cost={costs[s]}", flush=True)
 
 
-def run_farm(args, seeds, extra, results, costs) -> int:
+def run_farm(args, seeds, extra, results, costs, records) -> int:
     """``--farm-batch`` seeds at a time as lanes of one ``SeedFarm``, the
     STOP file looked for before every batch and at every trial boundary in
     it, the farm watchdog on its ``progress_cb``.  A resumed batch's output
@@ -498,7 +511,7 @@ def run_farm(args, seeds, extra, results, costs) -> int:
             before = [_read_seed_log(d) for d in watch["log_dirs"]]
             try:
                 with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
-                    _farm_batch(args, scen, batch, extra, tick, results, costs, watch)
+                    _farm_batch(args, scen, batch, extra, tick, results, costs, records, watch)
             except FarmStopped as e:
                 print(f"[repeat] STOP after trial {e.trial} of batch {batch}: its lanes' "
                       "checkpoints are written (resume with --resume)", flush=True)
@@ -508,7 +521,7 @@ def run_farm(args, seeds, extra, results, costs) -> int:
                     _save_seed_log(log_dir, buf.getvalue() if watch["resumed"] is None else
                                    f"{prev}\n==== resumed after trial {watch['resumed']} "
                                    f"====\n{buf.getvalue()}")
-            write_summary(args, results, costs, set(), complete=False)
+            write_summary(args, results, costs, set(), complete=False, records=records)
     finally:
         if stop is not None:
             stop.set()
@@ -602,25 +615,28 @@ def summary_path(args) -> str:
 
 def load_resume(args):
     """The finished seeds of an earlier (partial) sweep of this scenario and
-    tag; its infra seeds are not among them, so they run again."""
+    tag, with their farm records; its infra seeds are not among them, so
+    they run again."""
     path = summary_path(args)
     if not os.path.exists(path):
-        return {}, {}
+        return {}, {}, {}
     with open(path) as f:
         prev = json.load(f)
     results = {int(k): bool(v) for k, v in prev.get("per_seed", {}).items()}
     costs = {int(k): prev.get("per_seed_cost", {}).get(k) for k in prev.get("per_seed", {})}
+    records = {int(k): v for k, v in prev.get("per_seed_trials", {}).items()}
     print(f"[repeat] resume: {len(results)} completed seeds loaded from {path}")
-    return results, costs
+    return results, costs, records
 
 
-def write_summary(args, results, costs, infra, complete):
+def write_summary(args, results, costs, infra, complete, records=None):
     """Write the summary with the keys of the JAX driver's: the success rate
     and cost quartiles (linear interpolation) over the seeds that are no
     infra event, per-seed outcomes and costs, the infra seeds, the tag, the
-    flags passed through and the config overrides; and whether the sweep
+    flags passed through and the config overrides; whether the sweep
     was cut to the smoke size or to ``--trials`` (``summarize_results``
-    keeps such a sweep in a row of its own)."""
+    keeps such a sweep in a row of its own); and each farmed seed's
+    ``records`` (``farm_trial_records``)."""
     results = {s: v for s, v in results.items() if s not in infra}
     costs = {s: v for s, v in costs.items() if s not in infra}
     rate = sum(results.values()) / max(len(results), 1)
@@ -640,7 +656,9 @@ def write_summary(args, results, costs, infra, complete):
                "infra_error_seeds": sorted(infra), "tag": args.out_tag,
                "extra_flags": list(args.extra_flag), "scenario_kw": args.scenario_kw,
                "smoke": bool(args.smoke or "--smoke" in args.extra_flag), "trials": args.trials,
-               "complete": complete}
+               "complete": complete,
+               "per_seed_trials": {str(k): v for k, v in sorted((records or {}).items())
+                                   if k not in infra}}
     out = summary_path(args)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(out + ".tmp", "w") as f:
@@ -730,7 +748,7 @@ def main(argv=None) -> int:
         seeds = [int(s) for s in args.seeds.split(",")]
     else:
         seeds = list(range(args.first_seed, args.first_seed + args.num_seeds))
-    results, costs = load_resume(args) if args.resume else ({}, {})
+    results, costs, records = load_resume(args) if args.resume else ({}, {}, {})
     seeds = [s for s in seeds if s not in results]
     if args.resume and not args.farm:
         _refuse_farm_lanes(args, seeds)
@@ -742,7 +760,7 @@ def main(argv=None) -> int:
         watchdog = _start_watchdog(args.stall_secs)
     try:
         if args.farm:
-            rc = run_farm(args, seeds, extra, results, costs)
+            rc = run_farm(args, seeds, extra, results, costs, records)
         else:
             rc = run_sequential(args, seeds, extra, results, costs, infra)
     finally:
@@ -750,7 +768,7 @@ def main(argv=None) -> int:
             watchdog.set()
     if rc == STOP_EXIT_CODE:
         return rc
-    summary, out = write_summary(args, results, costs, infra, complete=True)
+    summary, out = write_summary(args, results, costs, infra, complete=True, records=records)
     print(json.dumps(summary, indent=1))
     print(f"wrote {out}")
     return 0

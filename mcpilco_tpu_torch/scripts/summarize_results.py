@@ -4,6 +4,8 @@ JAX package's records (the JAX package's ``scripts/summarize_results.py``).
     python -m mcpilco_tpu_torch.scripts.summarize_results            # a markdown table
     python -m mcpilco_tpu_torch.scripts.summarize_results --json
     python -m mcpilco_tpu_torch.scripts.summarize_results --dir results_tmp/torch/arm_a
+    python -m mcpilco_tpu_torch.scripts.summarize_results --dir a.json --dir b.json \
+        --write merged.json --scenario furuta
 
 The port's summaries (``repeat``'s ``repeat_*.json``) are read from
 ``results_tmp/torch/`` under the working directory, where ``repeat`` writes
@@ -21,7 +23,10 @@ a full sweep's row.  One row per package, scenario
 and arm: seeds, successes, rate, the quartiles of the final trial's
 cumulative cost (numpy's linear percentiles) and the files, the packages'
 rows side by side: they compare as rates and quartiles, never seed
-against seed.
+against seed.  ``--write OUT --scenario S`` writes the merged scenario S
+(its own arm, no flags) of the port's summaries as one summary in
+``repeat``'s layout instead: a sweep that ran in parts (another tag,
+another call) becomes one file, its ``note`` naming the parts.
 """
 
 import argparse
@@ -109,6 +114,43 @@ def rows(runs: dict, package: str) -> list:
     return out
 
 
+def merged_summary(files, scenario: str, root=ROOT) -> dict:
+    """The scenario's own arm of the summaries ``files``, merged as
+    :func:`merge` merges them, as one summary in ``repeat``'s layout (its
+    quartiles: linear interpolation, 4 decimals; the farm's per-trial
+    records, the infra seeds and ``complete`` of every part), with a
+    ``note`` naming the merged files."""
+    e = merge(files, root)[(scenario, "")]
+    e.update(per_seed_trials={}, complete=True, infra=set())
+    for path in sorted(files, key=os.path.getmtime):
+        with open(path) as f:
+            rec = json.load(f)
+        if "per_seed" in rec and (rec["scenario"], arm_label(path, rec)) == (scenario, ""):
+            e["per_seed_trials"].update(rec.get("per_seed_trials", {}))
+            e["complete"] = e["complete"] and rec.get("complete", True)
+            e["infra"] |= set(rec.get("infra_error_seeds", []))
+    outcomes = {int(k): bool(v) for k, v in e["per_seed"].items() if v is not None}
+    known = sorted(v for k, v in e["per_seed_cost"].items()
+                   if v is not None and int(k) in outcomes)
+    q = None
+    if known:
+        at = lambda p: round(float(np.percentile(np.asarray(known, np.float64), p)), 4)
+        q = {"q25": at(25), "median": at(50), "q75": at(75), "min": known[0], "max": known[-1]}
+    first = sorted(e["files"])
+    return {"scenario": scenario, "seeds": sorted(outcomes),
+            "success_rate": sum(outcomes.values()) / max(len(outcomes), 1),
+            "final_trial_cost_quartiles": q,
+            "per_seed": {str(k): outcomes[k] for k in sorted(outcomes)},
+            "per_seed_cost": {str(k): e["per_seed_cost"][str(k)] for k in sorted(outcomes)},
+            "infra_error_seeds": sorted(e["infra"] - set(outcomes)), "tag": "",
+            "extra_flags": [], "scenario_kw": [], "smoke": False,
+            "trials": None, "complete": e["complete"],
+            "per_seed_trials": {str(k): e["per_seed_trials"][str(k)] for k in sorted(outcomes)
+                                if str(k) in e["per_seed_trials"]},
+            "note": "merged by summarize_results --write from " + ", ".join(first)
+                    + "; no key added by hand"}
+
+
 def summary_files(paths) -> list:
     """The ``repeat_*.json`` files of ``paths`` (directories or files), each once."""
     found = {}
@@ -127,9 +169,21 @@ def main(argv=None) -> int:
                         "default results_tmp/torch and the checkout's results/torch)")
     p.add_argument("--jax-dir", default=os.path.join(ROOT, "results"),
                    help="the JAX package's records")
+    p.add_argument("--write", default=None, metavar="OUT",
+                   help="write the merged --scenario of the port's summaries to OUT")
+    p.add_argument("--scenario", default=None, help="with --write: the scenario")
     args = p.parse_args(argv)
     mine = args.dir or [os.path.join("results_tmp", "torch"),
                         os.path.join(ROOT, "results", "torch")]
+    if args.write:
+        if not args.scenario:
+            p.error("--write needs --scenario")
+        summary = merged_summary(summary_files(mine), args.scenario)
+        with open(args.write, "w") as f:
+            json.dump(summary, f, indent=1)
+        print(f"wrote {args.write}: {len(summary['seeds'])} seeds, "
+              f"{sum(summary['per_seed'].values())} successes")
+        return 0
     table = sorted(rows(merge(summary_files(mine)), "torch")
                    + rows(merge(summary_files([args.jax_dir])), "jax"),
                    key=lambda r: (r["scenario"], r["package"]))

@@ -96,7 +96,12 @@ def test_failure_rows_match_the_jax_script(runs, scenario, prefix, tmp_path, mon
     assert [r["seed"] for r in rows] == [r["seed"] for r in jrows] == [1 if scenario == "pms"
                                                                       else 2]
     for ours, theirs in zip(rows, jrows):
-        assert sorted(ours) == sorted(theirs)
+        # the port's one column more: the delta cap's binding share, on
+        # Furuta's capped rollout only
+        assert sorted(ours) == sorted(list(theirs) + ["delta_cap_share"])
+        assert (ours["delta_cap_share"] is None) == (scenario == "pms")
+        if scenario == "furuta":
+            assert 0.0 <= ours["delta_cap_share"] <= 1.0
         assert ours["scenario"] == theirs["scenario"] == scenario
         assert ours["executed_success"] == theirs["executed_success"]
         assert ours["mode"] == theirs["mode"]
@@ -134,6 +139,29 @@ def test_failure_rows_without_particle_snapshots(runs, tmp_path, monkeypatch):
     assert calls == [1]
     assert row["in_model_upright_frac"] == amf.cartpole_upright_fraction(a)
     assert row["mode"] == amf.mode_of(row["executed_success"], row["in_model_upright_frac"])
+
+
+def test_furuta_row_from_a_lane_is_the_sequential_seeds(tmp_path):
+    """``analyze_mujoco_failures --scenario furuta`` on a farm lane's
+    checkpoint (a batch of one seed, which keeps the lane's trials and the
+    last optimizer rollout's particles) gives the row that the same seed
+    trained alone through ``MCPilco.reinforce`` gives, number for number,
+    the cap's binding share included."""
+    from mcpilco_tpu_torch.parallel.multiseed import SeedFarm
+    from mcpilco_tpu_torch.scenarios import furuta
+
+    cfg = _small(furuta.FurutaConfig(seed=2), tmp_path / "furuta_seq_2")
+    agent, kwargs = furuta.build(cfg, "cpu")
+    agent.reinforce(**kwargs, verbose=False)
+    cfg0 = dataclasses.replace(cfg, seed=0, log_dir=None)
+    farm_agent, kw = furuta.build(cfg0, "cpu")
+    farm = SeedFarm(farm_agent, [2], policy_init_fn=lambda k: furuta.policy_init(
+        cfg0, farm_agent.policy, k, "cpu"))
+    farm.run(**kw, verbose=False, log_dirs=[str(tmp_path / "furuta_lane_2")])
+    rows = {tag: amf.main(["--scenario", "furuta", "--root", str(tmp_path), "--tag", tag,
+                           "--device", "cpu"]) for tag in ("seq", "lane")}
+    assert rows["lane"] == rows["seq"] and len(rows["seq"]) == 1
+    assert rows["seq"][0]["delta_cap_share"] is not None
 
 
 @pytest.mark.parametrize("executed_ok,frac,mode", [
@@ -284,7 +312,7 @@ def test_outcome_rule_on_the_committed_flagship_sweep():
 
 @pytest.mark.parametrize("scenario,p", [
     ("cartpole_pms", 0.00038), ("cartpole", 0.46), ("cartpole_multi_init", 0.25),
-    ("furuta", 0.52)])
+    ("furuta", 0.53)])
 def test_outcome_rows_carry_the_rank_test_of_the_successes_costs(scenario, p):
     """The Mann-Whitney p of the committed sweeps' successes' costs against
     the JAX records' (two-sided), printed beside Fisher's p as evidence
@@ -306,7 +334,8 @@ def test_outcome_rows_carry_the_rank_test_of_the_successes_costs(scenario, p):
 def test_an_incomplete_sweep_is_not_decided(tmp_path, capsys):
     """A summary that says ``"complete": false`` (a sweep cut by the chip
     time) gets a row, but no verdict; the committed Furuta sweep, complete
-    since its farm batch resumed from its lanes' checkpoints, gets its verdict."""
+    since its farm batches resumed from their lanes' checkpoints, gets its
+    verdict."""
     from mcpilco_tpu_torch.scripts import outcome_parity
 
     _summary(tmp_path / "repeat_furuta.json", "furuta", {2: True, 3: False}, {2: 36.0, 3: 90.0},
@@ -319,9 +348,35 @@ def test_an_incomplete_sweep_is_not_decided(tmp_path, capsys):
     (line,) = [l for l in capsys.readouterr().out.splitlines() if l.startswith("| furuta |")]
     assert line.startswith("| furuta | 1/2 (sweep incomplete) |") and "| not decided |" in line
     (row,) = [r for r in outcome_parity.main(["--json"]) if r["scenario"] == "furuta"]
-    assert row["complete"] is True and (row["port"]["successes"], row["port"]["seeds"]) == (3, 9)
-    # the rate matches (Fisher p 0.153), the successes' median does not (C.4)
-    assert row["rate_ok"] and not row["median_in_jax_iqr"] and row["match"] is False
+    assert row["complete"] is True and (row["port"]["successes"], row["port"]["seeds"]) == (6, 18)
+    # seeds 2-19: neither the rate (Fisher p 0.046) nor the successes' median
+    # matches (C.4)
+    assert not row["rate_ok"] and not row["median_in_jax_iqr"] and row["match"] is False
+
+
+def test_outcome_rows_against_a_jax_analysis_and_over_all_seeds(tmp_path):
+    """``--jax-rows``: a Furuta sweep held against the JAX package's failure
+    analysis of seeds 1-10 (round 3: 7/10) instead of its records; every row
+    also carries the rank test of all seeds' costs (evidence only)."""
+    from scipy.stats import fisher_exact, mannwhitneyu
+
+    from mcpilco_tpu_torch.scripts import outcome_parity
+
+    port = _summary(tmp_path / "repeat_furuta.json", "furuta",
+                    {2: True, 3: False, 4: False}, {2: 36.0, 3: 60.0, 4: 55.0})
+    rows_file = os.path.join(REPO, "results", "analyze_furuta_failures_r3.json")
+    (row,) = outcome_parity.main(["--port", port, "--jax-rows", rows_file, "--json"])
+    with open(rows_file) as f:
+        jax_rows = json.load(f)
+    assert (row["jax"]["successes"], row["jax"]["seeds"]) == (7, 10)
+    assert row["jax_files"] == [os.path.relpath(rows_file, REPO)]
+    assert row["fisher_p"] == pytest.approx(fisher_exact([[1, 2], [7, 3]])[1])
+    assert row["mannwhitney_all_p"] == mannwhitneyu(
+        [36.0, 60.0, 55.0], [r["executed_cost"] for r in jax_rows]).pvalue
+    (row,) = outcome_parity.main(["--port", port, "--json"])  # the records: 7/9
+    assert (row["jax"]["successes"], row["jax"]["seeds"]) == (7, 9)
+    assert row["mannwhitney_all_p"] == mannwhitneyu(row["port"]["all_costs"],
+                                                    row["jax"]["all_costs"]).pvalue
 
 
 @pytest.mark.parametrize("wins,cost,p_ok,median_ok", [

@@ -23,6 +23,7 @@ from mcpilco_tpu_torch.parallel import multiseed
 from mcpilco_tpu_torch.parallel.multiseed import FarmStopped, SeedFarm
 from mcpilco_tpu_torch.scenarios import cartpole, cartpole_pms, furuta
 from mcpilco_tpu_torch.scripts import repeat
+from mcpilco_tpu_torch.utils import checkpoint as ckpt
 
 torch.set_num_threads(1)
 
@@ -69,7 +70,10 @@ def _assert_same_result(a, b):
     for k in ra.policy_params:
         assert torch.equal(ra.policy_params[k], rb.policy_params[k]), k
     assert np.array_equal(fa.gp_x, fb.gp_x) and np.array_equal(fa.gp_y, fb.gp_y)
-    assert fa.num_collections == fb.num_collections
+    assert fa.num_collections == fb.num_collections == len(fa.trials) == len(fb.trials)
+    for ta, tb in zip(fa.trials, fb.trials):
+        for va, vb in zip(ta, tb):
+            assert va.dtype == vb.dtype and np.array_equal(va, vb)
 
 
 @pytest.fixture(scope="module", params=sorted(SCENARIOS))
@@ -96,6 +100,19 @@ def test_cut_and_resumed_batch_is_bitwise_the_uncut_one(uncut, k, tmp_path):
     _assert_same_result((got, fresh), want)
     for s in SEEDS:
         assert sorted(complete_trials(os.path.join(root, f"{name}_{s}"))) == [2]
+    # the resumed lanes' last checkpoints hold the uncut ones' trees: the
+    # trials' and the last optimizer rollout's particles among them
+    for s in SEEDS:
+        paths = [complete_trials(os.path.join(r, f"{name}_{s}"))[2] for r in (uncut[1], root)]
+        got, want = (ckpt.peek_meta(p) for p in paths)
+        for key in ("trial_measured", "trial_inputs", "trial_true", "trial_noisy"):
+            assert got[key] == want[key], key
+        for tree in ("trial_log_2", "gp_x", "gp_y", "policy_params"):
+            with np.load(os.path.join(paths[0], f"{tree}.npz")) as a, \
+                    np.load(os.path.join(paths[1], f"{tree}.npz")) as b:
+                assert sorted(a.files) == sorted(b.files)
+                for leaf in a.files:
+                    assert np.array_equal(a[leaf], b[leaf]), (tree, leaf)
 
 
 def test_resume_without_checkpoints_starts_afresh(tmp_path):
@@ -107,15 +124,24 @@ def test_resume_without_checkpoints_starts_afresh(tmp_path):
 
 def test_lane_checkpoint_restores_through_mcpilco(uncut):
     """A lane's ``complete_trial2`` loads into the seed's own sequential
-    agent through ``load_checkpoint``: its dataset, GP, policy and trial
-    logs."""
+    agent through ``load_checkpoint``: its dataset, GP, policy, trials
+    and trial logs, the last one with the optimizer's last particle
+    rollout."""
     name, root, (res, farm) = uncut
     mod = SCENARIOS[name][0]
     for i, s in enumerate(SEEDS):
         log_dir = os.path.join(root, f"{name}_{s}")
         agent, _ = mod.build(dataclasses.replace(_cfg(name), seed=s, log_dir=log_dir), "cpu")
         agent.load_checkpoint(complete_trials(log_dir)[2])
-        assert len(agent.trial_logs) == 3 and agent.trials == []
+        assert len(agent.trial_logs) == 3 and len(agent.trials) == farm.num_collections == 4
+        for got, want in zip(agent.trials, farm.trials):
+            for f in got._fields:
+                assert np.array_equal(getattr(got, f), getattr(want, f)[i]), f
+        opt = agent.optimizer
+        states = agent.trial_logs[-1].particles_states
+        assert states.shape == (opt.horizon, opt.num_particles, agent.model.state_dim)
+        assert np.array_equal(states, farm.opt_info["states"][i].numpy())
+        assert agent.trial_logs[0].particles_states.size == 0
         assert np.array_equal(agent.gp_x, farm.gp_x[i])
         assert np.array_equal(agent.gp_y, farm.gp_y[i])
         assert agent.num_collections == farm.num_collections

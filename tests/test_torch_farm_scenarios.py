@@ -19,7 +19,10 @@ Tolerances, and why:
   equal, rtol 1e-9;
 - ``gram_chunk`` in float32 against the unchunked predict, those of
   tests/test_gp.py (mean 2e-5, var 5e-4, gradient 1e-4), and in float64
-  against JAX's chunked predict: rtol 1e-9.
+  against JAX's chunked predict: rtol 1e-9;
+- a farmed Furuta seed against ``MCPilco.reinforce`` over 3 whole trials:
+  bitwise farmed alone, among 3 seeds within 1e-3 of each quantity's
+  largest entry.
 """
 
 import dataclasses
@@ -49,6 +52,7 @@ from mcpilco_tpu_torch.scenarios import cartpole as scen
 from mcpilco_tpu_torch.scenarios import cartpole_pms as pms
 from mcpilco_tpu_torch.scenarios import furuta
 from mcpilco_tpu_torch.utils import prng
+from mcpilco_tpu_torch.utils.cap_probe import CapShares, delta_cap_binding
 from mcpilco_tpu_torch.utils.convert import to_torch
 
 torch.set_num_threads(1)
@@ -434,3 +438,117 @@ def test_gram_chunk_matches_unchunked_and_jax(chunk):
         gj = jax.grad(lambda s: jnp.sum(jg.predict(params, post, s)[0]))(jnp.asarray(xs))
         for a, b in zip(port(tgc, torch.float64), (mj, vj, gj)):
             np.testing.assert_allclose(a, np.asarray(b), rtol=1e-9, atol=1e-12)
+
+
+# ------------------------------------------------------------------ the farm against reinforce
+
+
+class _Recorder:
+    """Every ``MultiGP.fit``'s loss history, every forced NaN's key, and the
+    cap's binding masks, while patched in by :meth:`patch`."""
+
+    def __init__(self, nan_keys):
+        self.fits, self.nan_hits, self.cap = [], [], CapShares()
+        self.nan_keys = {tuple(k) for k in nan_keys}
+
+    def patch(self, monkeypatch):
+        fit, draw = tgp.MultiGP.fit, troll.RolloutEngine.draw_noise
+
+        def recorded_fit(gp, *a, **k):
+            params, losses = fit(gp, *a, **k)
+            self.fits.append(losses.detach().clone())
+            return params, losses
+
+        def nan_draws(engine, key, *a, **k):
+            noise = draw(engine, key, *a, **k)
+            if not isinstance(key, list) and tuple(key) in self.nan_keys:
+                self.nan_hits.append(tuple(key))
+                noise = noise._replace(state=torch.full_like(noise.state, float("nan")))
+            return noise
+
+        monkeypatch.setattr(tgp.MultiGP, "fit", recorded_fit)
+        monkeypatch.setattr(troll.RolloutEngine, "draw_noise", nan_draws)
+        return delta_cap_binding(self.cap)
+
+
+def _assert_lane_equal(got, want, rtol):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    if rtol == 0:
+        assert np.array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * np.abs(want).max())
+
+
+WHOLE = dataclasses.replace(furuta.FurutaConfig(seed=3).smoke(), num_particles=8,
+                            num_trials=3, opt_steps=(6,), gp_epochs=60, num_basis=20,
+                            T_control=1.0)
+NAN_STEP = 2  # every draw of trial 1's step 2 is forced NaN
+
+
+def _capped(agent):
+    """The delta cap cut to 0.5 of the largest training delta, so that it
+    binds, and two NaN re-samples before a re-init."""
+    engine = dataclasses.replace(agent.optimizer.engine, delta_cap=0.5)
+    agent.optimizer = dataclasses.replace(agent.optimizer, engine=engine, max_nan_retries=2)
+
+
+def _whole_nan_keys(seeds):
+    return [prng.fold(prng.fold(prng.stream(prng.root_key(s), prng.STREAM_ROLLOUT), 1),
+                      NAN_STEP, r * (1 << 20)) for s in seeds for r in range(3)]
+
+
+@pytest.fixture(scope="module")
+def reinforced():
+    """Seed 3 through ``MCPilco.reinforce``, and its recorder."""
+    seq = _Recorder(_whole_nan_keys([3]))
+    with pytest.MonkeyPatch.context() as m, seq.patch(m):
+        agent, kwargs = furuta.build(WHOLE, "cpu")
+        _capped(agent)
+        agent.reinforce(**kwargs, verbose=False)
+    return agent, seq
+
+
+@pytest.mark.parametrize("seeds,rtol", [([3], 0.0), ([3, 5, 7], 1e-3)], ids=["alone", "among-3"])
+def test_furuta_farm_matches_reinforce_over_whole_trials(reinforced, seeds, rtol, monkeypatch):
+    """Seed 3 over 3 whole trials (exploration, then fit, optimization and
+    collection in each), through ``MCPilco.reinforce`` and farmed, alone
+    (S=1) and among 3 seeds, with the delta cap binding (:func:`_capped`)
+    and every draw of trial 1's step 2 forced NaN (two re-samples, then the
+    seed gives up and re-initializes).  Farmed alone, every trial's fit
+    losses, cost history, steps, re-inits, NaN re-samples and collected
+    trial, and the final posterior and policy, are bitwise the sequential
+    run's on the CPU.  Among 3 seeds a lane's bits depend on the batch (at
+    8 particles the batched rollout rounds otherwise), and the rounding
+    grows over the closed-loop trials: the same steps, re-inits and NaN
+    re-samples, every number within 1e-3 of its quantity's largest entry
+    (2.7e-4 when last run, in the last collected trial)."""
+    agent, seq = reinforced
+    lanes = _Recorder(_whole_nan_keys(seeds))
+    with lanes.patch(monkeypatch):
+        cfg0 = dataclasses.replace(WHOLE, seed=0)
+        farm_agent, kw = furuta.build(cfg0, "cpu")
+        _capped(farm_agent)
+        farm = SeedFarm(farm_agent, seeds,
+                        policy_init_fn=lambda k: furuta.policy_init(cfg0, farm_agent.policy, k,
+                                                                     "cpu"))
+        res = farm.run(**kw, verbose=False)
+    i = seeds.index(3)
+    assert len(seq.nan_hits) == 3 and len(lanes.nan_hits) == 3 * len(seeds)
+    assert seq.cap.share() > 0 and lanes.cap.array()[:, i].any()
+    assert len(seq.fits) == len(lanes.fits) == len(res.trial_logs) == 3
+    for t, (log, want) in enumerate(zip(res.trial_logs, agent.trial_logs)):
+        _assert_lane_equal(lanes.fits[t][i], seq.fits[t], rtol)
+        assert int(log.steps_done[i]) == want.steps_done == 6
+        assert int(log.reinit_count[i]) == want.reinit_count == int(t == 1)
+        assert int(log.nan_resamples[i]) == 3 * int(t == 1)
+        assert log.reverted_epochs[i] == 0 and log.jitter_scale[i] == 1.0
+        _assert_lane_equal(log.cost_history[i, : want.steps_done], want.cost_history, rtol)
+    assert farm.num_collections == len(agent.trials) == 4
+    for got, want in zip(farm.trials, agent.trials):
+        for f in want._fields:
+            _assert_lane_equal(getattr(got, f)[i], getattr(want, f), rtol)
+    for got, want in zip(farm.posterior, agent.posterior):
+        _assert_lane_equal(got[i], want, rtol)
+    for k, v in agent.policy_params.items():
+        _assert_lane_equal(res.policy_params[k][i], v, rtol)

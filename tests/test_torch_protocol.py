@@ -478,3 +478,44 @@ def test_bench_particle_scaling_quick(tmp_path):
         # the CPU predicts through the plain ops: equal to them, no kernel
         assert row["steps"] == 20 and row["predict_err"] == 0.0 and row["k1_per_step"] == 0
         assert all(map(lambda c: c == c, row["cost_first_last"]))
+
+
+def test_summarize_writes_a_sweep_run_in_parts_as_one(tmp_path):
+    """``--write``: two parts of one sweep (the committed Furuta summary and
+    a tagged farm part of seeds 90-91 with its per-trial records) become one
+    summary in ``repeat``'s layout; a smoke sweep of the same scenario stays
+    out; ``outcome_parity`` reads the merged file as it reads the parts."""
+    import numpy as np
+
+    from mcpilco_tpu_torch.scripts import outcome_parity
+    from mcpilco_tpu_torch.scripts import summarize_results as port
+
+    committed = os.path.join(REPO, "results", "torch", "repeat_furuta_h100.json")
+    with open(committed) as f:
+        first = json.load(f)
+    records = [{"trial": 0, "steps": 2000, "reinits": 0, "nan_resamples": 0,
+                "reverted_epochs": 0, "jitter_scale": 1.0}]
+    part = dict(first, seeds=[90, 91], tag="s90", per_seed={"90": True, "91": False},
+                per_seed_cost={"90": 35.5, "91": 61.25},
+                per_seed_trials={"90": records, "91": records})
+    smoke = dict(part, per_seed={"93": True}, per_seed_cost={"93": 1.0}, smoke=True)
+    paths = [tmp_path / "repeat_furuta_s90.json", tmp_path / "repeat_furuta_smoke.json"]
+    for path, rec in zip(paths, (part, smoke)):
+        path.write_text(json.dumps(rec))
+    out = tmp_path / "merged.json"
+    argv = ["--dir", committed, "--dir", str(paths[0]), "--dir", str(paths[1])]
+    assert port.main(argv + ["--write", str(out), "--scenario", "furuta"]) == 0
+    merged = json.loads(out.read_text())
+    assert set(merged) == set(first) | {"per_seed_trials", "note"}
+    assert merged["seeds"] == sorted(first["seeds"] + [90, 91]) and merged["complete"]
+    assert merged["per_seed"] == {**first["per_seed"], "90": True, "91": False}
+    assert merged["per_seed_trials"] == {**first.get("per_seed_trials", {}), "90": records,
+                                         "91": records}
+    costs = sorted(merged["per_seed_cost"].values())
+    assert merged["final_trial_cost_quartiles"]["median"] == round(float(np.median(costs)), 4)
+    assert "repeat_furuta_h100.json" in merged["note"] and "s90" in merged["note"]
+    one = outcome_parity.main(["--port", str(out), "--json"])
+    two = outcome_parity.main(["--port", committed, "--port", str(paths[0]), "--json"])
+    furuta = lambda found: [{k: v for k, v in r.items() if k != "port_files"} for r in found
+                            if r["scenario"] == "furuta"]
+    assert furuta(one) == furuta(two) and len(furuta(one)) == 1

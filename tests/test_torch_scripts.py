@@ -72,15 +72,16 @@ def test_apply_policy(smoke_run, target, expect, capsys):
 
 
 def _jax_summary_keys(tmp_path, monkeypatch):
-    """The keys of the JAX package's ``_write_summary``, and the port's two
-    that say whether a sweep was cut down (``smoke``, ``trials``)."""
+    """The keys of the JAX package's ``_write_summary``, the port's two that
+    say whether a sweep was cut down (``smoke``, ``trials``), and its record
+    of each farmed seed's trials (``per_seed_trials``)."""
     monkeypatch.syspath_prepend(os.path.join(REPO, "scripts"))
     jrepeat = importlib.import_module("repeat")
     args = type("Args", (), dict(scenario="cartpole", out_tag="keys", extra_flag=[],
                                  scenario_kw=[]))()
     summary, _ = jrepeat._write_summary(args, {1: True}, {1: 7.5}, set(), complete=True)
     sys.modules.pop("repeat")
-    return set(summary) | {"smoke", "trials"}
+    return set(summary) | {"smoke", "trials", "per_seed_trials"}
 
 
 @pytest.mark.parametrize("farm", [False, True])
